@@ -1,0 +1,13 @@
+from sstem_tpu_torch.compat.weights import (
+    fusionnet_state_dict_from_jax,
+    ifnet_state_dict_from_jax,
+    load_reference,
+    unet_sff_state_dict_from_jax,
+)
+
+__all__ = [
+    "fusionnet_state_dict_from_jax",
+    "ifnet_state_dict_from_jax",
+    "load_reference",
+    "unet_sff_state_dict_from_jax",
+]

@@ -1,0 +1,4 @@
+from sstem_tpu_torch.infer.tiles import pad_to_multiple
+from sstem_tpu_torch.infer.pipeline import SFFPipeline
+
+__all__ = ["pad_to_multiple", "SFFPipeline"]

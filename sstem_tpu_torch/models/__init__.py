@@ -1,0 +1,5 @@
+from sstem_tpu_torch.models.ifnet import IFNet
+from sstem_tpu_torch.models.fusionnet import FusionNet
+from sstem_tpu_torch.models.unet_sff import UNetSFF
+
+__all__ = ["IFNet", "FusionNet", "UNetSFF"]

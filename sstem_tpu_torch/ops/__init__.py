@@ -1,0 +1,12 @@
+from sstem_tpu_torch.ops.pad import replication_pad_2d
+from sstem_tpu_torch.ops.resize import upsample_bilinear_align_corners
+from sstem_tpu_torch.ops.warp import spatial_transform
+from sstem_tpu_torch.ops.flow import gen_line, gen_flow_np
+
+__all__ = [
+    "replication_pad_2d",
+    "upsample_bilinear_align_corners",
+    "spatial_transform",
+    "gen_line",
+    "gen_flow_np",
+]

@@ -1,0 +1,69 @@
+"""Fold-line flow synthesis in numpy (counterpart of ``sstem_tpu/ops/flow.py``:
+``gen_line`` and ``gen_flow_np``).
+
+A fold line ``y = k*x + b``, the signed distance ``d`` to it, and the
+piecewise-linear displacement profile of the reference flow synthesizer
+(``flow_synthesis.py:8-87``). ``flow2`` is the ground-truth unfolding flow.
+"""
+
+import math
+
+import numpy as np
+
+_MINA = 1e-9
+
+
+def gen_line(p1, p2):
+    """Line (slope, intercept) through two (row, col) points."""
+    denom = p2[1] - p1[1]
+    if denom == 0:
+        denom = _MINA
+    k = (p2[0] - p1[0]) / denom
+    b = p1[0] - k * p1[1]
+    return k, b
+
+
+def gen_flow_np(height, width, k, b, line_width=5, fold_width=10, dis_k=0.1):
+    """Returns (flow, flow2, mask): (H, W, 2), (H, W, 2) float32, (H, W)."""
+    gx = np.tile(np.arange(width)[None, :], [height, 1]).astype(np.float64)
+    gy = np.tile(np.arange(height)[:, None], [1, width]).astype(np.float64)
+    dis = (k * gx - gy + b) / math.sqrt(k**2 + 1)
+
+    sign = np.zeros_like(dis)
+    sign[dis > 0] = 1
+    sign[dis < 0] = -1
+
+    dis_abs = np.abs(dis)
+    mask = (dis_abs > line_width).astype(np.float64)
+
+    mask_dis = (dis_abs >= line_width).astype(np.float64)
+    mask_dis2 = (dis_abs >= fold_width).astype(np.float64)
+
+    dis_width = fold_width - line_width
+    slope = -dis_k
+    intercept = dis_width - slope * line_width
+    prof = np.maximum(slope * dis_abs + intercept, 0.0)
+
+    d1 = prof * mask_dis + dis_abs * (1 - mask_dis)
+    d2 = prof * mask_dis2 + dis_abs * (1 - mask_dis2)
+
+    dis1 = d1 * sign
+    dis2 = d2 * (-sign)
+
+    k_t = 1.0 / _MINA if k == 0 else 1.0 / k
+    angle = math.atan(k_t)
+    sin_p, cos_p = math.sin(angle), math.cos(angle)
+
+    flow = np.zeros((height, width, 2), dtype=np.float32)
+    flow2 = np.zeros((height, width, 2), dtype=np.float32)
+    if k > 0:
+        flow[..., 0] = dis1 * cos_p
+        flow[..., 1] = -dis1 * sin_p
+        flow2[..., 0] = dis2 * cos_p
+        flow2[..., 1] = -dis2 * sin_p
+    else:
+        flow[..., 0] = -dis1 * cos_p
+        flow[..., 1] = dis1 * sin_p
+        flow2[..., 0] = -dis2 * cos_p
+        flow2[..., 1] = dis2 * sin_p
+    return flow, flow2, mask.astype(np.float32)
