@@ -15,14 +15,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      sections, chunk 4, K=51, ngf=32, in bfloat16 and in float32, with the
      kernels' launch counts, ms/section and peak memory
   7. kernel times beside their plain versions' (CUDA events)
+  8. sepconv backward kernel vs its plain PyTorch version on the same inputs
+  9. one IFNet training step on the card vs on the CPU (K=51, 64^2, float32,
+     TF32 off): loss and every parameter's gradient
+ 10. full width training: ``train_interp.main`` for a few steps on the interp
+     trainer's workload (IFNet K=51, 256^2 crops, batch 32, L1, AdamW wd 1e-4
+     under the poly warmup/decay LR, float32 with TF32 off, a synthetic
+     triplet tree of 16 x 320^2 made from the seed), then the step of
+     ``build(cfg)`` timed: ms/step, steps/s, MP/s, peak memory, and the
+     sepconv launches per step, and 2 steps under torch.profiler (device
+     busy time, idle share, device time by kernel kind)
+ 11. sepconv forward and backward kernels vs their plain versions at the
+     training shape, and their times (CUDA events)
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
 is {"ok": true, "device": {...}}. Weights are random, made from seeds; this
-script imports nothing of JAX.
+script imports nothing of JAX. What it writes goes under ``build/chip_smoke/``
+in the checkout.
 """
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -34,6 +49,14 @@ import torch
 SEED = 0
 K = 51
 GPU = None  # "name, power limit" from nvidia-smi
+OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                   "chip_smoke")
+# the card's published peaks (H100 SXM at 700 W): HBM bytes/s, and float32
+# FLOP/s outside the tensor cores (the kernels' FMAs are plain float32)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# the interp trainer's workload
+TRAIN_BATCH, TRAIN_PATCH = 32, 256
 
 
 def say(key, value):
@@ -64,10 +87,17 @@ def check_sepconv(n, c, h, w, k, image_dtype, maps_dtype, gen):
     horz = rand((n, k, h, w), gen, 2.0 / k, maps_dtype)
     got = sepconv_planar(image, vert, horz)
     want = sepconv_planar_plain(image, vert, horz)
-    torch.cuda.synchronize()
-    assert got.dtype == image_dtype and got.shape == (n, c, h, w)
-    err = (got.float() - want.float()).abs()
     label = f"sepconv {n}x{c}x{h}x{w} K={k} image={image_dtype} maps={maps_dtype}"
+    return assert_sepconv_close(label, got, want, (n, c, h, w))
+
+
+def assert_sepconv_close(label, got, want, shape):
+    """The forward kernel's output against the plain version's: 1e-5 abs in
+    float32, one bf16 ulp of the value in bfloat16. Returns the max abs error."""
+    torch.cuda.synchronize()
+    image_dtype = want.dtype
+    assert got.dtype == image_dtype and got.shape == shape
+    err = (got.float() - want.float()).abs()
     if image_dtype == torch.float32:
         tol = 1e-5
         ok = bool(err.max() <= tol)
@@ -200,6 +230,280 @@ def full_size_run(stack, ids, dtype, chunk=4):
     return launches
 
 
+def check_sepconv_bwd(n, c, h, w, k, maps_dtype, gen):
+    """Backward kernel vs plain on the same unit-range image, maps whose
+    taps sum to about 1 per pixel, and a zero-mean output gradient, in the
+    float32 image dtype of training. Returns the max abs error."""
+    from sstem_tpu_torch.kernels import sepconv_planar_bwd, sepconv_planar_bwd_plain
+
+    image = rand((n, c, h + k - 1, w + k - 1), gen)
+    vert = rand((n, k, h, w), gen, 2.0 / k, maps_dtype)
+    horz = rand((n, k, h, w), gen, 2.0 / k, maps_dtype)
+    grad = rand((n, c, h, w), gen) - 0.5
+    got = sepconv_planar_bwd(image, vert, horz, grad)
+    want = sepconv_planar_bwd_plain(image, vert, horz, grad)
+    label = f"sepconv_bwd {n}x{c}x{h}x{w} K={k} maps={maps_dtype}"
+    return assert_sepconv_bwd_close(label, got, want, (n, k, h, w))
+
+
+def assert_sepconv_bwd_close(label, got, want, shape):
+    """The backward kernel's (dV, dH) against the plain version's: 1e-5 of
+    the tensor's max |value| in float32, one bf16 ulp of the value in
+    bfloat16. Returns the max abs error."""
+    torch.cuda.synchronize()
+    maps_dtype = want[0].dtype
+    err = 0.0
+    for name, a, b in zip(("dV", "dH"), got, want):
+        assert a.dtype == maps_dtype and a.shape == shape
+        d = (a.float() - b.float()).abs()
+        err = max(err, float(d.max()))
+        say(f"{label} {name} max_abs_err", float(d.max()))
+        if maps_dtype == torch.float32:
+            # f32 sums of K*K*C terms in another order
+            tol = 1e-5 * float(b.abs().max())
+            ok = bool(d.max() <= tol)
+        else:  # one bf16 ulp of the value: both round once from an f32 sum
+            tol = "1 bf16 ulp"
+            ok = bool((d <= bf16_ulp(torch.maximum(a.float().abs(),
+                                                   b.float().abs()))).all())
+        assert ok, f"{label} {name}: kernel disagrees with the plain version (tol {tol})"
+    return err
+
+
+def sepconv_bound(n, c, h, w, k, image_bytes, map_bytes, backward):
+    """(bound ms, 'bytes' or 'operations'): each input read once and each
+    output written once at the HBM rate, against the kernel's FMAs (2 FLOP
+    each) at the float32 peak. Forward: K*K+K FMAs per pixel and channel;
+    backward: 2*K*K+2*K per pixel and channel."""
+    image = n * c * (h + k - 1) * (w + k - 1) * image_bytes
+    plane = n * c * h * w * image_bytes
+    maps = n * k * h * w * map_bytes
+    if backward:
+        nbytes = image + plane + 4 * maps
+        flop = 2 * n * c * h * w * (2 * k * k + 2 * k)
+    else:
+        nbytes = image + 2 * maps + plane
+        flop = 2 * n * c * h * w * (k * k + k)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def train_step_card_vs_cpu(seed=SEED, hw=64, batch=2):
+    """One L1 step's loss and gradients of the same IFNet(51) on the card and
+    on the CPU. The gradients must agree within 1e-4 of each tensor's max
+    |gradient|: both are float32 without TF32, but cuDNN's kernels (FFT and
+    Winograd among them) sum in their own order. A sound float32 step has
+    measured 2.0e-6; a gradient rounded through bfloat16 anywhere would be
+    off by about 2e-3."""
+    import copy
+
+    from sstem_tpu_torch import losses
+    from sstem_tpu_torch.models import IFNet
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.random((batch, 6, hw, hw), dtype=np.float32))
+    y = torch.from_numpy(rng.random((batch, 1, hw, hw), dtype=np.float32))
+    cpu = IFNet(K, generator=torch.Generator().manual_seed(seed))
+    card = copy.deepcopy(cpu).cuda()
+    grads = []
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        loss = losses.l1_loss(model(x.to(dev)), y.to(dev))
+        loss.backward()
+        grads.append((loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (loss_card, g_card), (loss_cpu, g_cpu) = grads
+    say("train step card-vs-cpu loss", [loss_card, loss_cpu])
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu), (loss_card, loss_cpu)
+    worst, worst_name = 0.0, None
+    for name, want in g_cpu.items():
+        rel = float((g_card[name] - want).abs().max() / want.abs().max().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    say("train step card-vs-cpu worst grad err / max|grad|", f"{worst} ({worst_name})")
+    assert worst <= 1e-4, (worst, worst_name)
+
+
+# kernel-name fragments -> kind, first match wins (cuDNN's f32 convolutions
+# run as implicit GEMM, FFT or Winograd kernels; an FFT convolution's
+# spectra meet in a complex pointwise product)
+KERNEL_KINDS = (
+    ("sepconv", "sepconv kernels"),
+    ("multi_tensor_apply", "optimizer"),
+    ("conv", "convolution"), ("gemm", "convolution"), ("fft", "convolution"),
+    ("mult_and_sum_complex", "convolution"), ("flip_filter", "convolution"),
+    ("winograd", "convolution"), ("xmma", "convolution"),
+    ("cutlass", "convolution"), ("dgrad", "convolution"),
+    ("wgrad", "convolution"), ("cudnn", "convolution"),
+    ("upsample", "upsample"), ("pool", "pool"), ("reduce", "reduction"),
+    ("memcpy", "copies"), ("memset", "copies"), ("copy", "copies"),
+    ("elementwise", "elementwise"),
+)
+
+
+# the trace's categories of work on the device; annotation ranges
+# ("gpu_user_annotation") span kernels already counted and are left out
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def profile_steps(train_step, state, batch, steps=2):
+    """torch.profiler over ``steps`` training steps: wall ms per step, the
+    device's busy ms per step (the union of its kernel, memcpy and memset
+    intervals in the exported trace), the idle share, and device ms per step
+    by kernel kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    trace = os.path.join(OUT, "train_profile.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        work = [e for e in json.load(f)["traceEvents"]
+                if e.get("ph") == "X" and e.get("cat") in DEVICE_WORK]
+    assert work, "the trace holds no device work"
+    busy, end = 0.0, float("-inf")  # union of [ts, ts + dur), in us
+    for e in sorted(work, key=lambda e: e["ts"]):
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    busy /= 1e3 * steps
+    total = sum(e["dur"] for e in work) / 1e3 / steps
+    say("train profile wall ms per step (profiler on)", wall)
+    say("train profile device busy ms per step (union)", busy)
+    say("train profile device work ms per step (sum)", total)
+    say("train profile idle share", 1 - busy / wall)
+    say("train profile streams with device work",
+        sorted({e.get("args", {}).get("stream", e["tid"]) for e in work}))
+    assert busy <= wall, (busy, wall)
+    kinds, by_name = {}, {}
+    for e in work:
+        name = e["name"].lower()
+        kind = next((k for frag, k in KERNEL_KINDS if frag in name), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e["dur"] / 1e3 / steps
+        ms, calls = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e["dur"] / 1e3 / steps, calls + 1)
+    for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        say(f"train profile {kind} device ms per step (share of work)",
+            f"{ms} ({ms / total})")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    other = [kv for kv in ranked
+             if not any(frag in kv[0].lower() for frag, _ in KERNEL_KINDS)]
+    for what, rows in (("top kernel", ranked[:8]), ("top other", other[:4])):
+        for name, (ms, calls) in rows:
+            say(f"train profile {what} {name[:90]} ms per step (calls)",
+                f"{ms} ({calls // steps})")
+
+
+def write_interp_config(root, data):
+    """The interp trainer's workload as a reference-style YAML config."""
+    import yaml
+
+    aug = {"random_fliplr": True, "random_flipud": True, "random_flipz": True,
+           "random_rotation": True, "swap": True, "color_jitter": False,
+           "COLOR": {"brightness": 0.2, "contrast": 0.2, "saturation": 0.2},
+           "elastic_trans": False,
+           "ELASTIC": {"alpha_range": 100, "sigma": 10, "shave": 20},
+           "gauss_noise": False, "GAUSS": {"gauss_mean": 0, "gauss_sigma": 0.001}}
+    cfg = {"NAME": "interp_k51_b32",
+           "TRAIN": {"resume": False, "if_valid": True,
+                     "cache_path": os.path.join(root, "caches"),
+                     "save_path": os.path.join(root, "models"),
+                     "loss": "L1", "kernel_size": K, "total_iters": 400000,
+                     "warmup_iters": 1000, "base_lr": 1e-4, "end_lr": 1e-6,
+                     "decay_iters": 400000, "power": 1.5, "weight_decay": 1e-4,
+                     "display_freq": 100, "valid_freq": 1000, "save_freq": 1000,
+                     "batch_size": TRAIN_BATCH, "random_seed": SEED},
+           "DATA": {"folder_name": data, "train_txt": "train_data.txt",
+                    "valid_txt": "valid_data.txt",
+                    "patch_size": [TRAIN_PATCH, TRAIN_PATCH], "AUG": aug}}
+    path = os.path.join(root, "interp_k51_b32.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def full_width_training(steps=3, timed=10, warm=3):
+    """train_interp.main for ``steps`` steps, then the timed step of
+    build(cfg). Returns the launch counts of the main() run."""
+    from sstem_tpu_torch.cli import train_interp
+    from sstem_tpu_torch.compat.config import load_sff_config
+    from sstem_tpu_torch.data import write_triplet_tree
+    from sstem_tpu_torch.data.providers import InterpTrainDataset, Provider
+    from sstem_tpu_torch.kernels import sepconv_planar, sepconv_planar_bwd
+    from sstem_tpu_torch.train.trainer import TrainState
+
+    shutil.rmtree(OUT, ignore_errors=True)
+    data = os.path.join(OUT, "data")
+    rows = write_triplet_tree(data, n_triplets=16, size=320, seed=SEED)
+    with open(os.path.join(data, "valid_data.txt"), "w") as f:
+        f.write("\n".join(rows[:2]) + "\n")
+    cfg_path = write_interp_config(OUT, data)
+
+    sepconv_planar.launches = 0
+    sepconv_planar_bwd.launches = 0
+    paths = train_interp.main(["-c", cfg_path, "--max-iters", str(steps)])
+    torch.cuda.synchronize()
+    launches = {"sepconv_fwd": sepconv_planar.launches,
+                "sepconv_bwd": sepconv_planar_bwd.launches}
+    say("train main steps", steps)
+    say("train main sepconv_fwd launches", launches["sepconv_fwd"])
+    say("train main sepconv_bwd launches", launches["sepconv_bwd"])
+    # 2 per step, plus 2 for the step-1 preview and 2 for each of the two
+    # validation images at step 1 (the next validation is at save_freq)
+    assert launches == {"sepconv_fwd": 2 * steps + 2 + 2 * 2,
+                        "sepconv_bwd": 2 * steps}, launches
+    ckpt = os.path.join(paths["save_path"], "model-%06d.ckpt" % steps)
+    assert os.path.exists(ckpt), ckpt
+    with open(os.path.join(paths["cache_path"], "loss.txt")) as f:
+        loss = float(f.read().split("loss = ")[1].split()[0])
+    say("train main step-1 loss", loss)
+    assert np.isfinite(loss)
+    with open(os.path.join(paths["cache_path"], "valid.txt")) as f:
+        say("train main valid", f.read().strip().splitlines())
+
+    cfg = load_sff_config(cfg_path)
+    model, opt, train_step, _, _ = train_interp.build(cfg, "cuda", seed=SEED)
+    state = TrainState(model, opt)
+    provider = Provider(InterpTrainDataset(data, patch_size=(TRAIN_PATCH,) * 2),
+                        TRAIN_BATCH, seed=SEED, device="cuda")
+    try:
+        batch = provider.next()
+    finally:
+        provider.close()
+    assert tuple(batch[0].shape) == (TRAIN_BATCH, 6, TRAIN_PATCH, TRAIN_PATCH)
+    for _ in range(warm):
+        state, metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sepconv_planar.launches = 0
+    sepconv_planar_bwd.launches = 0
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    assert sepconv_planar.launches == 2 * timed, sepconv_planar.launches
+    assert sepconv_planar_bwd.launches == 2 * timed, sepconv_planar_bwd.launches
+    say("train step sepconv_fwd launches per step", sepconv_planar.launches / timed)
+    say("train step sepconv_bwd launches per step", sepconv_planar_bwd.launches / timed)
+    loss = float(metrics["loss"])
+    assert np.isfinite(loss)
+    ms = statistics.median(times) * 1e3
+    say(f"train step loss after {warm + timed} steps", loss)
+    say(f"train step ms (median of {timed} after {warm} warm)", ms)
+    say("train step ms runs", [t * 1e3 for t in times])
+    say("train step steps_per_s", 1e3 / ms)
+    say("train step MP_per_s", TRAIN_BATCH * TRAIN_PATCH ** 2 / ms / 1e3)
+    say("train step peak_memory_GiB", torch.cuda.max_memory_allocated() / 2 ** 30)
+    profile_steps(train_step, state, batch)
+    return launches
+
+
 def cuda_ms(fn, reps, warmup=1):
     for _ in range(warmup):
         fn()
@@ -232,6 +536,8 @@ def main():
     from sstem_tpu_torch.kernels import (
         _build,
         sepconv_planar,
+        sepconv_planar_bwd,
+        sepconv_planar_bwd_plain,
         sepconv_planar_plain,
         serving_warp,
     )
@@ -299,8 +605,48 @@ def main():
     say("warp 4x1280x1280 fold plain_ms", plain)
     times["warp"] = (ms, plain)
 
+    phase("8 sepconv backward kernel vs plain")
+    # the training shape is checked in phase 11, on the inputs it times
+    bwd_err = check_sepconv_bwd(2, 3, 61, 47, 11, f32, gen)
+    # more channels than fit in shared memory at K=51: the chunked path
+    bwd_err = max(bwd_err, check_sepconv_bwd(1, 13, 40, 40, K, f32, gen))
+    check_sepconv_bwd(2, 1, 64, 96, 5, bf16, gen)
+
+    phase("9 IFNet training step card vs cpu (K=51, 64^2, float32, TF32 off)")
+    train_step_card_vs_cpu()
+
+    phase("10 full width training: IFNet K=51, 256^2, batch 32, L1, AdamW")
+    train_launches = full_width_training()
+
+    phase("11 sepconv kernels vs plain and their times at the training shape")
+    n, hw = TRAIN_BATCH, TRAIN_PATCH
+    image = rand((n, 1, hw + K - 1, hw + K - 1), gen)
+    vert = rand((n, K, hw, hw), gen, 2.0 / K)
+    horz = rand((n, K, hw, hw), gen, 2.0 / K)
+    grad = rand((n, 1, hw, hw), gen) - 0.5
+    label = f"{n}x1x{hw}x{hw} K=51 f32"
+    fwd_train_err = assert_sepconv_close(
+        f"sepconv {label}", sepconv_planar(image, vert, horz),
+        sepconv_planar_plain(image, vert, horz), (n, 1, hw, hw))
+    bwd_err = max(bwd_err, assert_sepconv_bwd_close(
+        f"sepconv_bwd {label}", sepconv_planar_bwd(image, vert, horz, grad),
+        sepconv_planar_bwd_plain(image, vert, horz, grad), (n, K, hw, hw)))
+    for name, fn, plain in (
+            ("sepconv_fwd_train", lambda: sepconv_planar(image, vert, horz),
+             lambda: sepconv_planar_plain(image, vert, horz)),
+            ("sepconv_bwd", lambda: sepconv_planar_bwd(image, vert, horz, grad),
+             lambda: sepconv_planar_bwd_plain(image, vert, horz, grad))):
+        ms = cuda_ms(fn, reps=20, warmup=3)
+        plain_ms = cuda_ms(plain, reps=2)
+        say(f"{name} {label} kernel_ms", ms)
+        say(f"{name} {label} plain_ms", plain_ms)
+        times[name] = (ms, plain_ms)
+    del image, vert, horz, grad
+
     kernels = []
-    for name in ("f32", "bf16"):
+    for name, dt in (("f32", f32), ("bf16", bf16)):
+        nbytes = 4 if dt == f32 else 2
+        bound, by = sepconv_bound(4, 1, 1280, 1280, K, nbytes, nbytes, False)
         kernels.append({
             "name": f"sepconv_fwd[{name}]", "route": "cuda",
             "source": "sstem_tpu_torch/csrc/sepconv_fwd.cu",
@@ -308,14 +654,39 @@ def main():
             "launches": launches[name]["sepconv_fwd"],
             "max_abs_err": sep_err[name],
             "ms": times[f"sepconv_{name}"][0],
-            "plain_ms": times[f"sepconv_{name}"][1]})
+            "plain_ms": times[f"sepconv_{name}"][1],
+            "bound_ms": bound, "bound_by": by, "library_ms": None})
+    warp_bytes = 4 * 1280 * 1280 * (4 + 8 + 4)  # im, flow in; out
     kernels.append({
         "name": "warp_bilinear", "route": "cuda",
         "source": "sstem_tpu_torch/csrc/warp_bilinear.cu",
         "replaces": "sstem_tpu/kernels/warp_band.py:64",
         "launches": sum(v["warp_bilinear"] for v in launches.values()),
         "max_abs_err": warp_err, "ms": times["warp"][0],
-        "plain_ms": times["warp"][1]})
+        "plain_ms": times["warp"][1],
+        "bound_ms": warp_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None})
+    bound, by = sepconv_bound(n, 1, hw, hw, K, 4, 4, False)
+    kernels.append({
+        "name": "sepconv_fwd[train_f32]", "route": "cuda",
+        "source": "sstem_tpu_torch/csrc/sepconv_fwd.cu",
+        "replaces": "sstem_tpu/kernels/sepconv.py:240",
+        "launches": train_launches["sepconv_fwd"],
+        "max_abs_err": fwd_train_err,
+        "ms": times["sepconv_fwd_train"][0],
+        "plain_ms": times["sepconv_fwd_train"][1],
+        "bound_ms": bound, "bound_by": by, "library_ms": None})
+    bound, by = sepconv_bound(n, 1, hw, hw, K, 4, 4, True)
+    kernels.append({
+        "name": "sepconv_bwd", "route": "cuda",
+        "source": "sstem_tpu_torch/csrc/sepconv_bwd.cu",
+        "replaces": "sstem_tpu/kernels/sepconv.py:287",
+        "launches": train_launches["sepconv_bwd"],
+        "max_abs_err": bwd_err,
+        "ms": times["sepconv_bwd"][0], "plain_ms": times["sepconv_bwd"][1],
+        "bound_ms": bound, "bound_by": by, "library_ms": None})
+    for kern in kernels:
+        say(f"{kern['name']} bound_ms ({kern['bound_by']})", kern["bound_ms"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,18 @@ same functions in PyTorch, with hand-written CUDA kernels for Hopper
 
   config.py   compute dtype and the TF32 policy
   ops/        replication pad, align-corners resize, zero-border warp, fold flows
-  kernels/    sepconv and warp wrappers (CUDA kernel on the card, plain torch on
-              the CPU) and the nvcc/ctypes build of ``csrc/*.cu``
+  kernels/    sepconv (forward and backward) and warp wrappers (CUDA kernel on
+              the card, plain torch on the CPU) and the nvcc/ctypes build of
+              ``csrc/*.cu``
   models/     IFNet, FusionNet, UNetSFF in NCHW with the reference's key names
-  compat/     JAX variables and reference checkpoints -> port state dicts
+  compat/     JAX variables and reference checkpoints -> port state dicts;
+              the reference's YAML configs
   infer/      the SFF restore pipeline and pad-to-stride
-  data/       synthetic ssTEM stacks
+  data/       synthetic ssTEM stacks and triplet trees, augmentations, the
+              interp datasets and the threaded provider
+  losses.py   L1, L2, SSIM; metrics.py: reference PSNR
+  train/      optimizer, train step, LR schedule, checkpoints, the loop
+  cli/        ``python -m sstem_tpu_torch.cli.train_interp``
 
 This package imports torch, numpy and scipy, and never jax or sstem_tpu.
 """

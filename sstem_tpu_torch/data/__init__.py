@@ -1,3 +1,3 @@
-from sstem_tpu_torch.data.synthetic import synth_stack
+from sstem_tpu_torch.data.synthetic import synth_stack, write_triplet_tree
 
-__all__ = ["synth_stack"]
+__all__ = ["synth_stack", "write_triplet_tree"]

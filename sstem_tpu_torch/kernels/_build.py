@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, ``build/sstem_tpu_torch/libsstem_kernels.so``
-at the root of the checkout, and loaded with ctypes. The build happens at the
-first call that needs a kernel and is cached by a hash of the sources and the
-flags; importing this module needs neither ``nvcc`` nor a GPU.
+``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+source, all started together (the build takes the slowest source's time,
+not the sum; the log gives each source's seconds), and linked into one
+shared library with a plain C interface,
+``build/sstem_tpu_torch/libsstem_kernels.so`` at the root of the checkout,
+which is loaded with ctypes. The build happens at the first call that needs
+a kernel and is cached by a hash of the sources and the flags; importing
+this module needs neither ``nvcc`` nor a GPU.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch, as an
 int; the wrappers raise when it is not 0.
@@ -16,6 +19,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -23,7 +28,7 @@ SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
 BUILD_DIR = _PKG.parent / "build" / "sstem_tpu_torch"
 LIBRARY = BUILD_DIR / "libsstem_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +37,10 @@ _ENTRY_POINTS = {
     # image, vertical, horizontal, out, n, c, h, w, k,
     # image_bf16, maps_bf16, stream
     "sstem_sepconv_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # image, vertical, horizontal, grad, dvertical, dhorizontal, n, c, h, w,
+    # k, image_bf16, maps_bf16, stream
+    "sstem_sepconv_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
     # im, flow, out, n, h, w, stream
     "sstem_warp_bilinear": [_P, _P, _P, _I, _I, _I, _P],
 }
@@ -55,6 +64,14 @@ def _digest():
     return h.hexdigest()
 
 
+def _compile(nvcc, src, obj):
+    """(nvcc's exit code, its output, seconds) for one source."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                          capture_output=True, text=True)
+    return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
+
+
 def build():
     """Compile ``csrc/*.cu`` unless the cached library matches the sources.
 
@@ -71,21 +88,25 @@ def build():
             "nvcc was found on PATH or at /usr/local/cuda/bin/nvcc; CUDA "
             "tensors cannot be processed on this host")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            results = list(pool.map(_compile, [nvcc] * len(SOURCES), SOURCES,
+                                    objects))
+        logs = [f"{src.name} ({secs:.3f} s):\n{out}"
+                for src, (_, out, secs) in zip(SOURCES, results)]
+        failed = [src.name for src, (rc, _, _) in zip(SOURCES, results) if rc]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        lib = os.path.join(tmp, LIBRARY.name)
+        link = subprocess.run([nvcc, "-shared", "-o", lib, *objects],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+                f"nvcc link failed (exit {link.returncode}):\n{link.stderr}")
+        os.replace(lib, LIBRARY)
     stamp.write_text(digest)
-    return LIBRARY, proc.stdout + proc.stderr
+    return LIBRARY, "\n".join(logs)
 
 
 def library():

@@ -2,9 +2,9 @@
 
 ``flax .init`` of the three SFF models costs about 35 s of XLA compilation on
 a CPU, so the tests take the variable tree from ``jax.eval_shape`` of
-``.init`` (a trace, no compile) and fill it from a numpy seed. The same
-numpy arrays then go to the flax model and, through
-``sstem_tpu_torch.compat.weights``, to the port.
+``.init`` (a trace, no compile; about a second, so each tree is traced once
+per process) and fill it from a numpy seed. The same numpy arrays then go to
+the flax model and, through ``sstem_tpu_torch.compat.weights``, to the port.
 """
 
 import jax
@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from sstem_tpu.models import FusionNet, IFNet, UNetSFF
+
+_TREES = {}  # the traced shape tree by model, input shape and init kwargs
 
 
 def numpy_variables(model, seed, shape=(1, 64, 64, 6), **init_kw):
@@ -21,8 +23,12 @@ def numpy_variables(model, seed, shape=(1, 64, 64, 6), **init_kw):
     BN weight 1 + N(0, 0.1), bias N(0, 0.1), running mean N(0, 0.1) and
     running var U(0.5, 1.5), so eval-mode BN does real work.
     """
-    tree = jax.eval_shape(lambda k, x: model.init(k, x, **init_kw),
-                          jax.random.PRNGKey(0), jnp.zeros(shape, jnp.float32))
+    key = (repr(model), shape, tuple(sorted(init_kw.items())))
+    if key not in _TREES:
+        _TREES[key] = jax.eval_shape(
+            lambda k, x: model.init(k, x, **init_kw), jax.random.PRNGKey(0),
+            jnp.zeros(shape, jnp.float32))
+    tree = _TREES[key]
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
@@ -46,20 +52,23 @@ def numpy_variables(model, seed, shape=(1, 64, 64, 6), **init_kw):
     return jax.tree_util.tree_map_with_path(fill, tree)
 
 
-def sff_variables(kernel_size, seed=0):
-    """(interp, flow, fusion) variables for IFNet(kernel_size), FusionNet
-    and UNetSFF.
-
-    The kernel heads' last conv is scaled so each frame's taps sum to about
-    1/sqrt(2) per map, as a trained KPN's do: the interp (the sum of the two
-    frames' sepconvs) then stays mostly inside 0..1 instead of saturating.
-    """
+def ifnet_variables(kernel_size, seed=0):
+    """IFNet(kernel_size) variables whose kernel heads' last conv is scaled
+    so each frame's taps sum to about 1/sqrt(2) per map, as a trained KPN's
+    do: the interp (the sum of the two frames' sepconvs) then stays mostly
+    inside 0..1 instead of saturating."""
     iv = numpy_variables(IFNet(kernel_size, 1), seed)
     for head in ("head1h", "head1v", "head2h", "head2v"):
         conv3 = iv["params"][head]["conv3"]["Conv_0"]
         conv3["kernel"] = conv3["kernel"] * np.float32(0.02)
         conv3["bias"] = conv3["bias"] * np.float32(0.2) + np.float32(
             1.0 / (kernel_size * np.sqrt(2.0)))
-    return (iv,
+    return iv
+
+
+def sff_variables(kernel_size, seed=0):
+    """(interp, flow, fusion) variables for IFNet(kernel_size) (see
+    ``ifnet_variables``), FusionNet and UNetSFF."""
+    return (ifnet_variables(kernel_size, seed),
             numpy_variables(FusionNet(output_nc=2), seed + 1, train=True),
             numpy_variables(UNetSFF(1), seed + 2, train=True))

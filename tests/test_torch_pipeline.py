@@ -64,13 +64,32 @@ def _assert_within_bounds(got, want):
                                    atol=1e-3)
 
 
+@pytest.fixture(scope="module")
+def jax_results(pipelines):
+    """JAX results by (hw, method), each computed once. At 32-multiple sizes
+    both port methods are held against JAX's ``restore_stack_scanned``: the
+    JAX package's two methods agree there to the bounds above (its
+    tests/test_infer.py pins <= 1 level). At other sizes the two methods
+    differ by design in a right/bottom border band (JAX pipeline.py,
+    ``restore_stack_scanned``), so each is held against its own."""
+    cache = {}
+
+    def get(hw, method):
+        if hw[0] % 32 == 0 and hw[1] % 32 == 0:
+            method = "restore_stack_scanned"
+        if (hw, method) not in cache:
+            cache[hw, method] = getattr(pipelines[0], method)(
+                synth_stack(5, *hw, seed=3), IDS)
+        return cache[hw, method]
+
+    return get
+
+
 @pytest.mark.parametrize("method", ["restore_stack_scanned", "restore_stack"])
 @pytest.mark.parametrize("hw", [(96, 96), (83, 101)])
-def test_port_pipeline_matches_jax(pipelines, hw, method):
-    stack = synth_stack(5, *hw, seed=3)
-    want = getattr(pipelines[0], method)(stack, IDS)
-    got = getattr(pipelines[1], method)(stack, IDS)
-    _assert_within_bounds(got, want)
+def test_port_pipeline_matches_jax(pipelines, jax_results, hw, method):
+    got = getattr(pipelines[1], method)(synth_stack(5, *hw, seed=3), IDS)
+    _assert_within_bounds(got, jax_results(hw, method))
 
 
 def test_port_test_pad_matches_jax(pipelines):
