@@ -27,6 +27,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      busy time, idle share, device time by kernel kind)
  11. sepconv forward and backward kernels vs their plain versions at the
      training shape, and their times (CUDA events)
+ 12. conv3x3, pool, deconv and head-tail kernels vs their plain versions at
+     the packed_conv=True path's shapes (and an odd size for the edges)
+ 13. the packed_conv=True pipeline on the card vs on the CPU (K=51, bfloat16
+     on both sides): NRMSE of each float output, uint8 level differences
+ 14. phase 6's workload in bfloat16 on the packed_conv=True path, with the
+     head tails on cuDNN and on the head-tail kernel, beside the cuDNN path:
+     launch counts per group asserted, ms/section, peak memory, and one call
+     under torch.profiler each
+ 15. the new kernels at their full-width shapes (CUDA events) beside their
+     plain versions, their bounds and one library call for the same work
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -48,6 +58,7 @@ import torch
 
 SEED = 0
 K = 51
+DEV = "cuda"  # where the checks make their inputs
 GPU = None  # "name, power limit" from nvidia-smi
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                    "chip_smoke")
@@ -74,7 +85,7 @@ def bf16_ulp(x):
 
 
 def rand(shape, gen, scale=1.0, dtype=torch.float32):
-    return (torch.rand(shape, generator=gen, device="cuda") * scale).to(dtype)
+    return (torch.rand(shape, generator=gen, device=DEV) * scale).to(dtype)
 
 
 def check_sepconv(n, c, h, w, k, image_dtype, maps_dtype, gen):
@@ -135,10 +146,11 @@ def check_warp(im, flow, label):
     return err
 
 
-def build_pipeline(device, dtype, seed=SEED, kernel_size=K):
+def build_pipeline(device, dtype, seed=SEED, kernel_size=K, **options):
     """SFFPipeline on seeded random weights. The kernel heads' last conv is
     rescaled so each frame's taps sum to about 1/sqrt(2), as a trained KPN's
-    do; otherwise the interp saturates at the clip and hides the sepconv."""
+    do; otherwise the interp saturates at the clip and hides the sepconv.
+    ``options`` go to SFFPipeline (packed_conv, fused_head_tail)."""
     from sstem_tpu_torch.infer.pipeline import SFFPipeline
     from sstem_tpu_torch.models import FusionNet, IFNet, UNetSFF
 
@@ -150,7 +162,8 @@ def build_pipeline(device, dtype, seed=SEED, kernel_size=K):
             head[7].weight.mul_(0.002)
             head[7].bias.mul_(0.2).add_(1.0 / (kernel_size * 2 ** 0.5))
     return SFFPipeline(interp, FusionNet(ngf=32, generator=g),
-                       UNetSFF(generator=g), device=device, dtype=dtype)
+                       UNetSFF(generator=g), device=device, dtype=dtype,
+                       **options)
 
 
 def compare_pipelines(gpu, cpu, ids):
@@ -171,13 +184,40 @@ def compare_pipelines(gpu, cpu, ids):
         assert disagree <= 1e-3 and d <= 1 and flow_err <= 1e-3, i
 
 
-def full_size_run(stack, ids, dtype, chunk=4):
-    """The bench workload in one dtype. Returns the kernels' launch counts
-    during one restore_stack_scanned call."""
-    from sstem_tpu_torch.kernels import sepconv_planar, serving_warp
+# launches per group of the restore paths, by kernel (sepconv and warp on
+# every path; the packed path's counts follow models/serving.py: conv3x3 19
+# in IFNet, 21 in FusionNet, 10 in UNetSFF; one pool and two deconvs in
+# FusionNet and UNetSFF, one pool in IFNet; a head tail per kernel head)
+PATH_LAUNCHES = {
+    "cudnn": {"sepconv_fwd": 2, "warp_bilinear": 1},
+    "packed": {"sepconv_fwd": 2, "warp_bilinear": 1, "conv3x3_fused": 50,
+               "pool2x": 3, "deconv2x_fused": 4},
+    "packed_fused_tail": {"sepconv_fwd": 2, "warp_bilinear": 1,
+                          "conv3x3_fused": 50, "pool2x": 3,
+                          "deconv2x_fused": 4, "head_tail": 4},
+}
 
-    name = str(dtype).removeprefix("torch.")
-    pipe = build_pipeline("cuda", dtype)
+
+def counted_kernels():
+    """Every kernel wrapper of the restore paths, by name."""
+    from sstem_tpu_torch import kernels
+
+    return {"sepconv_fwd": kernels.sepconv_planar,
+            "warp_bilinear": kernels.serving_warp,
+            "conv3x3_fused": kernels.conv3x3_fused,
+            "pool2x": kernels.pool2x,
+            "deconv2x_fused": kernels.deconv2x_fused,
+            "head_tail": kernels.head_tail}
+
+
+def full_size_run(stack, ids, dtype, path="cudnn", chunk=4, profile=False,
+                  **options):
+    """The bench workload in one dtype on one path. Returns (the kernels'
+    launch counts during one restore_stack_scanned call, ms/section); with
+    ``profile``, one more call runs under torch.profiler."""
+    wrappers = counted_kernels()
+    name = f"{str(dtype).removeprefix('torch.')} {path}"
+    pipe = build_pipeline("cuda", dtype, **options)
     z, h, w = stack.shape
     groups = -(-len(ids) // chunk)
 
@@ -191,17 +231,17 @@ def full_size_run(stack, ids, dtype, chunk=4):
         return outs
 
     pipe.section = checked
-    sepconv_planar.launches = 0
-    serving_warp.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     out = pipe.restore_stack_scanned(stack, ids, chunk=chunk)
     torch.cuda.synchronize()
-    launches = {"sepconv_fwd": sepconv_planar.launches,
-                "warp_bilinear": serving_warp.launches}
+    launches = {k: fn.launches for k, fn in wrappers.items()}
     del pipe.section
     say(f"full {name} groups", groups)
-    say(f"full {name} sepconv launches", launches["sepconv_fwd"])
-    say(f"full {name} warp launches", launches["warp_bilinear"])
-    assert launches == {"sepconv_fwd": 2 * groups, "warp_bilinear": groups}
+    for k, n in launches.items():
+        say(f"full {name} {k} launches (per group)", f"{n} ({n / groups})")
+    want = {k: PATH_LAUNCHES[path].get(k, 0) * groups for k in wrappers}
+    assert launches == want, (launches, want)
     assert finite and all(finite), f"{name}: non-finite values before quantization"
     assert sorted(out) == sorted(ids)
     for i in ids:
@@ -227,7 +267,13 @@ def full_size_run(stack, ids, dtype, chunk=4):
     say(f"full {name} ms_per_section runs", [t * 1000 / len(ids) for t in times])
     say(f"full {name} peak_memory_GiB",
         torch.cuda.max_memory_allocated() / 2 ** 30)
-    return launches
+    if profile:
+        profile_runs(f"full {name}",
+                     lambda: pipe.restore_stack_scanned(stack, ids, chunk=chunk),
+                     1, len(ids), "section", f"restore_{path}_profile.json")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches, ms
 
 
 def check_sepconv_bwd(n, c, h, w, k, maps_dtype, gen):
@@ -328,6 +374,9 @@ def train_step_card_vs_cpu(seed=SEED, hw=64, batch=2):
 # spectra meet in a complex pointwise product)
 KERNEL_KINDS = (
     ("sepconv", "sepconv kernels"),
+    ("conv3x3_fused", "conv3x3 kernel"), ("deconv2x_fused", "deconv kernel"),
+    ("pool2x_kernel", "pool kernel"), ("head_tail", "head-tail kernel"),
+    ("warp_bilinear", "warp kernel"),
     ("multi_tensor_apply", "optimizer"),
     ("conv", "convolution"), ("gemm", "convolution"), ("fft", "convolution"),
     ("mult_and_sum_complex", "convolution"), ("flip_filter", "convolution"),
@@ -346,56 +395,68 @@ DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def profile_steps(train_step, state, batch, steps=2):
-    """torch.profiler over ``steps`` training steps: wall ms per step, the
-    device's busy ms per step (the union of its kernel, memcpy and memset
-    intervals in the exported trace), the idle share, and device ms per step
-    by kernel kind."""
+    """torch.profiler over ``steps`` training steps (``profile_runs``)."""
+    box = [state]
+
+    def step():
+        box[0], _ = train_step(box[0], batch)
+
+    profile_runs("train", step, steps, 1, "step", "train_profile.json")
+
+
+def profile_runs(label, run, reps, per, unit, trace_name):
+    """torch.profiler over ``reps`` calls of ``run`` (``per`` units each):
+    wall ms per unit, the device's busy ms per unit (the union of its
+    kernel, memcpy and memset intervals in the exported trace), the idle
+    share, and device ms per unit by kernel kind."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            state, _ = train_step(state, batch)
+        for _ in range(reps):
+            run()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / steps
-    trace = os.path.join(OUT, "train_profile.json")
+        wall = (time.perf_counter() - t0) * 1e3 / (reps * per)
+    os.makedirs(OUT, exist_ok=True)
+    trace = os.path.join(OUT, trace_name)
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         work = [e for e in json.load(f)["traceEvents"]
                 if e.get("ph") == "X" and e.get("cat") in DEVICE_WORK]
     assert work, "the trace holds no device work"
+    units = reps * per
     busy, end = 0.0, float("-inf")  # union of [ts, ts + dur), in us
     for e in sorted(work, key=lambda e: e["ts"]):
         start, stop = e["ts"], e["ts"] + e["dur"]
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
-    busy /= 1e3 * steps
-    total = sum(e["dur"] for e in work) / 1e3 / steps
-    say("train profile wall ms per step (profiler on)", wall)
-    say("train profile device busy ms per step (union)", busy)
-    say("train profile device work ms per step (sum)", total)
-    say("train profile idle share", 1 - busy / wall)
-    say("train profile streams with device work",
+    busy /= 1e3 * units
+    total = sum(e["dur"] for e in work) / 1e3 / units
+    say(f"{label} profile wall ms per {unit} (profiler on)", wall)
+    say(f"{label} profile device busy ms per {unit} (union)", busy)
+    say(f"{label} profile device work ms per {unit} (sum)", total)
+    say(f"{label} profile idle share", 1 - busy / wall)
+    say(f"{label} profile streams with device work",
         sorted({e.get("args", {}).get("stream", e["tid"]) for e in work}))
     assert busy <= wall, (busy, wall)
     kinds, by_name = {}, {}
     for e in work:
         name = e["name"].lower()
         kind = next((k for frag, k in KERNEL_KINDS if frag in name), "other")
-        kinds[kind] = kinds.get(kind, 0.0) + e["dur"] / 1e3 / steps
+        kinds[kind] = kinds.get(kind, 0.0) + e["dur"] / 1e3 / units
         ms, calls = by_name.get(e["name"], (0.0, 0))
-        by_name[e["name"]] = (ms + e["dur"] / 1e3 / steps, calls + 1)
+        by_name[e["name"]] = (ms + e["dur"] / 1e3 / units, calls + 1)
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        say(f"train profile {kind} device ms per step (share of work)",
+        say(f"{label} profile {kind} device ms per {unit} (share of work)",
             f"{ms} ({ms / total})")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     other = [kv for kv in ranked
              if not any(frag in kv[0].lower() for frag, _ in KERNEL_KINDS)]
     for what, rows in (("top kernel", ranked[:8]), ("top other", other[:4])):
         for name, (ms, calls) in rows:
-            say(f"train profile {what} {name[:90]} ms per step (calls)",
-                f"{ms} ({calls // steps})")
+            say(f"{label} profile {what} {name[:90]} ms per {unit} (calls)",
+                f"{ms} ({calls // reps})")
 
 
 def write_interp_config(root, data):
@@ -517,6 +578,345 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+# the card's dense bf16 tensor-core peak (H100 SXM at 700 W), FLOP/s
+BF16_FLOP_PER_S = 989e12
+
+
+def roofline(nbytes, flop, peak):
+    """(bound ms, 'bytes' or 'operations'): the bytes at the HBM rate
+    against the FLOPs at ``peak``, whichever takes longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def randn(shape, gen, scale=1.0, dtype=torch.bfloat16):
+    return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
+
+
+def assert_bf16_close(label, got, want):
+    """A kernel's bf16 output against its plain version's. Both round once
+    to bf16 from f32 sums that differ only in their order, so they may
+    differ by one bf16 ulp of the value; where a sum cancels to near zero
+    (or an activation meets it there) that order noise, ~1e-6 of the
+    summed terms, exceeds an ulp of the small result, so 2^-14 of the
+    tensor's max |value| is allowed on top. Returns the max abs error."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16, (got.dtype, want.dtype)
+    assert got.shape == want.shape, (tuple(got.shape), tuple(want.shape))
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ulp = bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    floor = 2.0 ** -14 * float(w.abs().max())
+    say(f"{label} max_abs_err", float(err.max()))
+    say(f"{label} max err / (1 ulp + floor), at most 1",
+        float((err / (ulp + floor)).max()))
+    say(f"{label} share of outputs off by more than 1 bf16 ulp",
+        float((err > ulp).float().mean()))
+    assert bool(torch.isfinite(g).all()), f"{label}: non-finite output"
+    assert bool((err <= ulp + floor).all()), (
+        f"{label}: kernel disagrees with the plain version (1 bf16 ulp + "
+        f"2^-14 of max)")
+    return float(err.max())
+
+
+def conv_inputs(n, h, w, cin, cout, gen, residual):
+    x = randn((n, h, w, cin), gen)
+    wt = randn((3, 3, cin, cout), gen, (2.0 / (9 * cin)) ** 0.5)
+    scale = torch.rand(cout, generator=gen, device=DEV) + 0.5
+    shift = torch.randn(cout, generator=gen, device=DEV) * 0.1
+    res = randn((n, h, w, cout), gen) if residual else None
+    return x, wt, scale, shift, res
+
+
+def check_conv(n, h, w, cin, cout, act, res_mode, gen):
+    """conv3x3 kernel vs plain; res_mode None, 'pre' or 'post'."""
+    from sstem_tpu_torch.kernels import conv3x3_fused, conv3x3_fused_plain
+
+    x, wt, scale, shift, res = conv_inputs(n, h, w, cin, cout, gen, res_mode)
+    pre = res_mode == "pre"
+    got = conv3x3_fused(x, wt, scale, shift, act, res, pre)
+    want = conv3x3_fused_plain(x, wt, scale, shift, act, res, pre)
+    return assert_bf16_close(
+        f"conv3x3 {n}x{h}x{w} {cin}->{cout} act={act} res={res_mode}", got,
+        want)
+
+
+def deconv_inputs(n, h, w, cin, cout, gen, residual):
+    x = randn((n, h, w, cin), gen)
+    wt = randn((3, 3, cin, cout), gen, (2.0 / (2.25 * cin)) ** 0.5)
+    scale = torch.rand(cout, generator=gen, device=DEV) + 0.5
+    shift = torch.randn(cout, generator=gen, device=DEV) * 0.1
+    res = randn((n, 2 * h, 2 * w, cout), gen) if residual else None
+    return x, wt, scale, shift, res
+
+
+def check_deconv(n, h, w, cin, cout, act, res_mode, gen):
+    from sstem_tpu_torch.kernels import deconv2x_fused, deconv2x_fused_plain
+
+    x, wt, scale, shift, res = deconv_inputs(n, h, w, cin, cout, gen, res_mode)
+    mode = res_mode or "post_affine"
+    got = deconv2x_fused(x, wt, scale, shift, act, res, mode)
+    want = deconv2x_fused_plain(x, wt, scale, shift, act, res, mode)
+    return assert_bf16_close(
+        f"deconv2x {n}x{h}x{w} {cin}->{cout} act={act} res={res_mode}", got,
+        want)
+
+
+def check_pool(n, h, w, c, mode, gen):
+    """Max is exact and average sums in the plain version's order, so the
+    kernel must match it exactly."""
+    from sstem_tpu_torch.kernels import pool2x, pool2x_plain
+
+    x = randn((n, h, w, c), gen)
+    got = pool2x(x, mode)
+    want = pool2x_plain(x, mode)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = float((got.float() - want.float()).abs().max())
+    say(f"pool2x {n}x{h}x{w}x{c} {mode} max_abs_err", err)
+    assert err == 0.0, f"pool2x {mode}: kernel differs from the plain version"
+    return err
+
+
+def head_tail_inputs(n, hi, wi, cx, k, gen):
+    x = randn((n, hi, wi, cx), gen)
+    w3 = randn((3, 3, k, k), gen, (2.0 / (9 * k)) ** 0.5)
+    b3 = torch.randn(k, generator=gen, device=DEV) * 0.1
+    return x, w3, b3
+
+
+def check_head_tail(n, hi, wi, cx, k, gen):
+    """Within 2e-2 of the max |value| (the hardware gate's tolerance,
+    TPU_CHECKS.json head_tail_fused_640_k51): the kernel and F.interpolate
+    may round an upsampled value to different bf16 neighbours."""
+    from sstem_tpu_torch.kernels import head_tail, head_tail_plain
+
+    x, w3, b3 = head_tail_inputs(n, hi, wi, cx, k, gen)
+    got = head_tail(x, w3, b3)
+    want = head_tail_plain(x, w3, b3)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, k, 2 * hi, 2 * wi)
+    err = (got.float() - want.float()).abs()
+    rel = float(err.max()) / float(want.float().abs().max())
+    label = f"head_tail {n}x{hi}x{wi}x{cx} K={k}"
+    say(f"{label} max_abs_err", float(err.max()))
+    say(f"{label} max_err / max|value|", rel)
+    say(f"{label} share of outputs off by more than 1 bf16 ulp", float(
+        (err > bf16_ulp(torch.maximum(got.float().abs(), want.float().abs())))
+        .float().mean()))
+    assert rel <= 2e-2, f"{label}: kernel disagrees with the plain version"
+    return float(err.max())
+
+
+# NRMSE limits of the packed path, card vs CPU: both round to bf16 at the
+# same points from f32 sums that differ only in order. The fused output
+# gets tests/test_serving.py's 0.05: at these random weights its std is
+# 0.0020 (half a uint8 level) around a mean of 0.0087, where one bf16 ulp
+# (6.1e-5) is 3% of the std, so single-ulp flips read 0.0192 (PERF.md).
+PACKED_NRMSE = {"interp": 0.02, "fused": 0.05, "warped": 0.02, "flow": 0.02}
+
+
+def compare_packed(gpu_sec, cpu_sec, gpu, cpu, ids):
+    """The packed path on the card vs on the CPU. Float outputs of one
+    group's ``section``: NRMSE below PACKED_NRMSE of each output's std.
+    uint8 outputs of restore_stack_scanned: the largest level difference
+    and the share of pixels more than 1 level apart are printed."""
+    for name, a, b in zip(PACKED_NRMSE, gpu_sec, cpu_sec):
+        a = a.float().cpu().double()
+        b = b.float().double()
+        nrmse = float(((a - b) ** 2).mean().sqrt() / b.std())
+        say(f"packed card-vs-cpu {name} nrmse (of std {float(b.std())})", nrmse)
+        assert nrmse < PACKED_NRMSE[name], (name, nrmse)
+    for key in ("interp", "fused", "warped", "stitch"):
+        d = np.abs(np.stack([gpu[i][key] for i in ids]).astype(np.int32)
+                   - np.stack([cpu[i][key] for i in ids]).astype(np.int32))
+        say(f"packed card-vs-cpu {key} max_level_diff", int(d.max()))
+        say(f"packed card-vs-cpu {key} share > 1 level", float((d > 1).mean()))
+    flow = max(float(np.abs(gpu[i]["flow"] - cpu[i]["flow"]).max()) for i in ids)
+    say("packed card-vs-cpu flow max_abs_err", flow)
+
+
+def time_new_kernels(gen):
+    """Each new kernel at its full-width shapes: kernel, plain version and
+    one library call for the same work, by CUDA events. Returns
+    {name: (ms, plain_ms, library_ms, bound_ms, bound_by)}."""
+    import torch.nn.functional as F
+
+    from sstem_tpu_torch.kernels import (
+        conv3x3_fused, conv3x3_fused_plain, deconv2x_fused,
+        deconv2x_fused_plain, head_tail, head_tail_plain, pool2x,
+        pool2x_plain)
+
+    out = {}
+    cl = torch.channels_last
+    for n, h, w, c in ((4, 1280, 1280, 32), (4, 640, 640, 64)):
+        x, wt, scale, shift, _ = conv_inputs(n, h, w, c, c, gen, False)
+        w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+
+        def library():
+            y = F.conv2d(x.permute(0, 3, 1, 2), w_cl, padding=1)
+            return torch.relu(y.float() * scale[:, None, None]
+                              + shift[:, None, None]).to(torch.bfloat16)
+
+        nbytes = 2 * (2 * n * h * w * c + 9 * c * c) + 8 * c
+        flop = 2 * n * h * w * c * c * 9
+        name = f"conv3x3_fused[C{c}@{n}x{h}^2]"
+        out[name] = (cuda_ms(lambda: conv3x3_fused(x, wt, scale, shift, "relu"), 20, 3),
+                     cuda_ms(lambda: conv3x3_fused_plain(x, wt, scale, shift, "relu"), 3),
+                     cuda_ms(library, 20, 3), *roofline(nbytes, flop, BF16_FLOP_PER_S))
+        del x, wt, w_cl
+    x = randn((4, 1280, 1280, 32), gen)
+    for mode, lib in (("max", F.max_pool2d), ("avg", F.avg_pool2d)):
+        nbytes = 2 * 4 * 1280 * 1280 * 32 * 5 // 4
+        out[f"pool2x[{mode}]"] = (
+            cuda_ms(lambda: pool2x(x, mode), 50, 3),
+            cuda_ms(lambda: pool2x_plain(x, mode), 5),
+            cuda_ms(lambda: lib(x.permute(0, 3, 1, 2), 2), 50, 3),
+            *roofline(nbytes, 4 * 640 * 640 * 32 * 4, F32_FLOP_PER_S))
+    del x
+    for n, h, w, cin, mode in ((4, 320, 320, 128, None),
+                               (4, 640, 640, 64, "post_act_half")):
+        cout = cin // 2
+        x, wt, scale, shift, res = deconv_inputs(n, h, w, cin, cout, gen, mode)
+        w_t = wt.permute(2, 3, 0, 1).contiguous(memory_format=cl)
+        nbytes = 2 * (n * h * w * cin + 9 * cin * cout
+                      + 4 * n * h * w * cout * (2 if mode else 1)) + 8 * cout
+        flop = 2 * n * h * w * cin * cout * 9
+        rm = mode or "post_affine"
+        out[f"deconv2x_fused[{cin}->{cout}@{n}x{h}^2]"] = (
+            cuda_ms(lambda: deconv2x_fused(x, wt, scale, shift, "relu", res, rm), 20, 3),
+            cuda_ms(lambda: deconv2x_fused_plain(x, wt, scale, shift, "relu", res, rm), 3),
+            cuda_ms(lambda: F.conv_transpose2d(x.permute(0, 3, 1, 2), w_t, stride=2,
+                                               padding=1, output_padding=1), 20, 3),
+            *roofline(nbytes, flop, BF16_FLOP_PER_S))
+        del x, wt, res, w_t
+    x, w3, b3 = head_tail_inputs(4, 640, 640, 64, K, gen)
+    w3_oihw = w3.permute(3, 2, 0, 1).contiguous()
+    b3_bf = b3.to(torch.bfloat16)
+
+    def library():
+        up = F.interpolate(x[..., :K].permute(0, 3, 1, 2).contiguous(),
+                           scale_factor=2, mode="bilinear", align_corners=True)
+        return F.conv2d(up, w3_oihw, b3_bf, padding=1)
+
+    nbytes = 2 * (4 * 640 * 640 * 64 + 9 * K * K + 4 * K * 1280 * 1280) + 4 * K
+    flop = 2 * 4 * 1280 * 1280 * K * K * 9
+    out["head_tail[K51@4x640^2]"] = (
+        cuda_ms(lambda: head_tail(x, w3, b3), 10, 2),
+        cuda_ms(lambda: head_tail_plain(x, w3, b3), 3),
+        cuda_ms(library, 10, 2), *roofline(nbytes, flop, BF16_FLOP_PER_S))
+    del x
+    for name, (ms, plain, lib, b, by) in out.items():
+        say(f"{name} kernel_ms", ms)
+        say(f"{name} plain_ms", plain)
+        say(f"{name} library_ms", lib)
+        say(f"{name} bound_ms ({by})", b)
+    return out
+
+
+def group_input(stack, ids):
+    """The [prev, next, degraded] float input of one group, edge-padded to
+    multiples of 32, as restore_stack_scanned builds it."""
+    z, h, w = stack.shape
+    p = np.pad(stack, [(0, 0), (0, -h % 32), (0, -w % 32)], mode="edge")
+    ix = np.asarray(ids)
+    x3 = np.stack([p[ix - 1], p[ix + 1], p[ix]], 1).astype(np.float32) / 255
+    return torch.from_numpy(x3)
+
+
+def packed_phases(gen, stack, ids):
+    """Phases 12-15, the packed_conv=True path; ``stack`` and ``ids`` are
+    phase 6's. Returns what the kernels' JSON line needs."""
+    from sstem_tpu_torch import config
+    from sstem_tpu_torch.data import synth_stack
+
+    bf16 = config.SERVING_DTYPE
+    out = {}
+    phase("12 conv3x3, pool, deconv and head-tail kernels vs plain")
+    out["err"] = {
+        "conv3x3_fused": max(
+            check_conv(4, 1280, 1280, 32, 32, "relu", None, gen),
+            check_conv(4, 1280, 1280, 32, 32, "leaky", "post", gen),
+            check_conv(4, 640, 640, 64, 64, "relu", "pre", gen),
+            check_conv(4, 640, 640, 64, 64, None, None, gen),
+            check_conv(4, 1280, 1280, 2, 32, "leaky", None, gen),
+            check_conv(4, 640, 640, 64, K, "relu", None, gen),
+            check_conv(4, 1280, 1280, 32, 2, None, None, gen),
+            check_conv(4, 1280, 1280, 32, 1, "relu", "pre", gen),
+            check_conv(2, 37, 53, K, K, "leaky", "post", gen)),
+        "pool2x": max(
+            check_pool(4, 1280, 1280, 32, "max", gen),
+            check_pool(4, 1280, 1280, 32, "avg", gen),
+            check_pool(2, 37, 53, K, "max", gen),
+            check_pool(2, 37, 53, K, "avg", gen)),
+        "deconv2x_fused": max(
+            check_deconv(4, 320, 320, 128, 64, "relu", None, gen),
+            check_deconv(4, 640, 640, 64, 32, "relu", "post_act_half", gen),
+            check_deconv(4, 320, 320, 128, 64, "leaky", "post_affine", gen),
+            check_deconv(2, 37, 53, K, 27, "relu", "post_act_half", gen)),
+        "head_tail": max(
+            check_head_tail(4, 640, 640, 64, K, gen),
+            check_head_tail(2, 37, 53, K, K, gen)),
+    }
+
+    phase("13 packed path card vs cpu (K=51, bfloat16, 150 x 170)")
+    small = synth_stack(5, 150, 170, seed=0)
+    x3 = group_input(small, [1, 3])
+    secs, outs = [], []
+    for dev in (DEV, "cpu"):
+        pipe = build_pipeline(dev, bf16, packed_conv=True)
+        secs.append(pipe.section(x3.to(dev)))
+        outs.append(pipe.restore_stack_scanned(small, [1, 3]))
+    compare_packed(secs[0], secs[1], outs[0], outs[1], [1, 3])
+
+    phase("14 full width, packed path: 25 x 1250^2, 12 sections, chunk 4")
+    runs = {"cudnn": full_size_run(stack, ids, bf16, profile=True),
+            "packed": full_size_run(stack, ids, bf16, "packed",
+                                    profile=True, packed_conv=True),
+            "packed_fused_tail": full_size_run(
+                stack, ids, bf16, "packed_fused_tail", profile=True,
+                packed_conv=True, fused_head_tail=True)}
+    for path, (_, ms) in runs.items():
+        say(f"full bfloat16 {path} ms_per_section, this phase", ms)
+    out["launches"] = {k: v[0] for k, v in runs.items()}
+
+    phase("15 new kernels' times at full width (CUDA events)")
+    out["times"] = time_new_kernels(gen)
+    return out
+
+
+NEW_KERNELS = (
+    # JSON name prefix, kernel, source, TPU kernel body, launches' path
+    ("conv3x3_fused", "sstem_tpu_torch/csrc/conv3x3_fused.cu",
+     "sstem_tpu/kernels/conv3x3.py:124", "packed"),
+    ("pool2x", "sstem_tpu_torch/csrc/pool2x.cu",
+     "sstem_tpu/kernels/pool.py:45", "packed"),
+    ("deconv2x_fused", "sstem_tpu_torch/csrc/deconv2x_fused.cu",
+     "sstem_tpu/kernels/deconv.py:63", "packed"),
+    ("head_tail", "sstem_tpu_torch/csrc/head_tail.cu",
+     "sstem_tpu/kernels/head_tail.py:174", "packed_fused_tail"),
+)
+
+
+def new_kernel_entries(res):
+    """JSON entries of the packed path's kernels, one per timed shape; the
+    launches are the kernel's on its path in phase 14 (all shapes)."""
+    entries = []
+    for kernel, source, replaces, path in NEW_KERNELS:
+        for name, (ms, plain, lib, b, by) in res["times"].items():
+            if name.split("[")[0] != kernel:
+                continue
+            entries.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": res["launches"][path][kernel],
+                "max_abs_err": res["err"][kernel], "ms": ms,
+                "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                "library_ms": lib})
+    return entries
+
+
 def main():
     global GPU
     phase("1 device")
@@ -553,8 +953,9 @@ def main():
     print(log.strip())
     say("build seconds", time.perf_counter() - t0)
 
-    phase("3 sepconv kernel vs plain")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    phase("3 sepconv kernel vs plain")
     f32, bf16 = config.PARITY_DTYPE, config.SERVING_DTYPE
     sep_err = {
         "f32": check_sepconv(4, 1, 1280, 1280, K, f32, f32, gen),
@@ -584,8 +985,8 @@ def main():
     phase("6 full size: 25 x 1250^2, 12 damaged sections, chunk 4")
     stack = synth_stack(25, 1250, 1250, seed=0)
     ids = list(range(1, 24, 2))
-    launches = {"bf16": full_size_run(stack, ids, bf16),
-                "f32": full_size_run(stack, ids, f32)}
+    launches = {"bf16": full_size_run(stack, ids, bf16)[0],
+                "f32": full_size_run(stack, ids, f32)[0]}
 
     phase("7 kernel times (CUDA events)")
     times = {}
@@ -643,6 +1044,8 @@ def main():
         times[name] = (ms, plain_ms)
     del image, vert, horz, grad
 
+    packed = packed_phases(gen, stack, ids)
+
     kernels = []
     for name, dt in (("f32", f32), ("bf16", bf16)):
         nbytes = 4 if dt == f32 else 2
@@ -685,6 +1088,7 @@ def main():
         "max_abs_err": bwd_err,
         "ms": times["sepconv_bwd"][0], "plain_ms": times["sepconv_bwd"][1],
         "bound_ms": bound, "bound_by": by, "library_ms": None})
+    kernels += new_kernel_entries(packed)
     for kern in kernels:
         say(f"{kern['name']} bound_ms ({kern['bound_by']})", kern["bound_ms"])
     print(json.dumps({"kernels": kernels}))

@@ -7,10 +7,11 @@ same functions in PyTorch, with hand-written CUDA kernels for Hopper
 
   config.py   compute dtype and the TF32 policy
   ops/        replication pad, align-corners resize, zero-border warp, fold flows
-  kernels/    sepconv (forward and backward) and warp wrappers (CUDA kernel on
-              the card, plain torch on the CPU) and the nvcc/ctypes build of
-              ``csrc/*.cu``
-  models/     IFNet, FusionNet, UNetSFF in NCHW with the reference's key names
+  kernels/    sepconv (forward and backward), warp, conv3x3, pool, deconv and
+              head-tail wrappers (CUDA kernel on the card, plain torch on the
+              CPU) and the nvcc/ctypes build of ``csrc/*.cu``
+  models/     IFNet, FusionNet, UNetSFF in NCHW with the reference's key names;
+              ``serving.py``, their fused-conv bf16 serving forwards
   compat/     JAX variables and reference checkpoints -> port state dicts;
               the reference's YAML configs
   infer/      the SFF restore pipeline and pad-to-stride

@@ -1,5 +1,6 @@
 """The SFF restore pipeline (counterpart of ``sstem_tpu/infer/pipeline.py``:
-``SFFPipeline`` on its ``packed_conv=False`` path).
+``SFFPipeline``, on its ``packed_conv=False`` path and, with
+``packed_conv=True``, on its fused-conv serving path).
 
 For each damaged section k of a (Z, H, W) uint8 stack:
 
@@ -15,16 +16,28 @@ Reference semantics (``sff_scripts_fusion/inference.py:112-201``): eval-mode
 models, inputs /255, the zero-border warp, the stitch threshold of 2 levels.
 Every public method runs under ``torch.inference_mode()`` on ``device``, and
 returns numpy results from the ``restore_stack*`` entry points.
+
+With ``packed_conv=True`` the nets run as the serving forwards of
+``models/serving.py`` (bf16, NHWC, the conv, pool, deconv and head-tail
+kernels) on two-channel gray pairs end to end: [prev, next] into IFNet,
+[degraded, interp] into FusionNet, [warped, interp] into UNetSFF, each net's
+first conv pair-folded (exact on the replicated-gray input); the warp runs
+once, on the one degraded channel, and ``warped`` stays single-channel.
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sstem_tpu_torch.config import PARITY_DTYPE
+from sstem_tpu_torch.config import PARITY_DTYPE, SERVING_DTYPE
 from sstem_tpu_torch.infer.tiles import pad_to_multiple
 from sstem_tpu_torch.kernels import serving_warp
 from sstem_tpu_torch.models.layers import set_compute_dtype
+from sstem_tpu_torch.models.serving import (
+    fusionnet_serve,
+    ifnet_serve,
+    unet_sff_serve,
+)
 
 
 def _check_interior(damaged_ids, z):
@@ -52,25 +65,60 @@ class SFFPipeline:
 
     Args:
       interp_model, flow_model, fusion_model: ``IFNet``, ``FusionNet`` and
-        ``UNetSFF`` instances. They are moved to ``device``, put in eval mode
-        and their conv weights cast to ``dtype`` in place.
+        ``UNetSFF`` instances. They are moved to ``device`` and put in eval
+        mode; without ``packed_conv`` their conv weights are cast to
+        ``dtype`` in place (the serving forwards read float32 weights and
+        keep bf16 copies of their own).
       device: where the models run.
       dtype: compute dtype, ``config.PARITY_DTYPE`` (float32) or
         ``config.SERVING_DTYPE`` (bfloat16).
       pad: the reference's TEST.pad, a symmetric zero pad before the interp
         model and a crop after (``restore_stack`` path only).
+      packed_conv: run the fused-conv serving forwards (bf16 only; the JAX
+        package has no float32 packed path). False by default: the cuDNN
+        path stays the default until a measurement on the card shows the
+        fused path faster.
+      fused_head_tail: with ``packed_conv``, run the IFNet head tails on the
+        ``head_tail`` kernel (the JAX ``SSTEM_FUSED_HEAD_TAIL=1``) instead of
+        cuDNN's upsample and conv.
     """
 
     def __init__(self, interp_model, flow_model, fusion_model, device,
-                 dtype=PARITY_DTYPE, pad=0):
+                 dtype=PARITY_DTYPE, pad=0, packed_conv=False,
+                 fused_head_tail=False):
+        if packed_conv and dtype != SERVING_DTYPE:
+            raise ValueError(
+                f"packed_conv=True serves bfloat16 only (the JAX package has "
+                f"no float32 packed path); got dtype={dtype}")
+        if fused_head_tail and not packed_conv:
+            raise ValueError("fused_head_tail needs packed_conv=True")
         self.device = torch.device(device)
         self.pad = pad
-        self.interp_model, self.flow_model, self.fusion_model = (
-            set_compute_dtype(m.to(self.device).eval(), dtype)
-            for m in (interp_model, flow_model, fusion_model))
+        self.packed_conv = packed_conv
+        self.fused_head_tail = fused_head_tail
+        models = [m.to(self.device).eval()
+                  for m in (interp_model, flow_model, fusion_model)]
+        if not packed_conv:
+            models = [set_compute_dtype(m, dtype) for m in models]
+        self.interp_model, self.flow_model, self.fusion_model = models
 
     def _to01(self, img):
         return torch.as_tensor(img, device=self.device).float() / 255.0
+
+    def _interp(self, x2):
+        """Packed path: IFNet on an (N, H, W, 2) [prev, next] pair in 0..1 ->
+        (N, H, W) float32."""
+        return ifnet_serve(self.interp_model, x2,
+                           fused_head_tail=self.fused_head_tail)[..., 0]
+
+    def _restore_packed(self, x2):
+        """Packed path: (N, H, W, 2) [degraded, interp] -> (pred (N, H, W),
+        flow (N, H, W, 2) f32, warped (N, H, W) f32)."""
+        flow = fusionnet_serve(self.flow_model, x2).float()
+        warped = serving_warp(x2[..., 0:1].contiguous(), flow)
+        fused_in = torch.cat([warped, x2[..., 1:2]], -1)
+        pred = unet_sff_serve(self.fusion_model, fused_in).float()
+        return pred[..., 0], flow, warped[..., 0]
 
     def _restore(self, xr):
         """(N, 6, H, W) [degraded x3, interp x3] -> (pred (N, 1, H, W),
@@ -89,6 +137,12 @@ class SFFPipeline:
         Returns float32 (interp, fused, warped) (N, H, W) and flow
         (N, H, W, 2), before clipping and quantization.
         """
+        if self.packed_conv:
+            interp = self._interp(torch.stack([x3[:, 0], x3[:, 1]], -1))
+            interp = interp.clamp(0.0, 1.0)
+            pred, flow, warped = self._restore_packed(
+                torch.stack([x3[:, 2], interp], -1))
+            return interp, pred, warped, flow
         interp = self.interp_model(_gray6(x3[:, 0], x3[:, 1]))[:, 0]
         interp = interp.clamp(0.0, 1.0).float()
         pred, flow, warped = self._restore(_gray6(x3[:, 2], interp))
@@ -98,13 +152,19 @@ class SFFPipeline:
     def interpolate(self, prev_imgs, next_imgs):
         """Interpolate sections from gray uint8 neighbours (N, H, W);
         returns (N, H, W) in 0..1 on the device."""
-        x = _gray6(self._to01(prev_imgs), self._to01(next_imgs))
-        x = x.permute(0, 2, 3, 1)
+        if self.packed_conv:
+            x = torch.stack([self._to01(prev_imgs), self._to01(next_imgs)], -1)
+        else:
+            x = _gray6(self._to01(prev_imgs), self._to01(next_imgs))
+            x = x.permute(0, 2, 3, 1)
         if self.pad:
             p = self.pad
             x = F.pad(x, (0, 0, p, p, p, p))
         x, (h, w) = pad_to_multiple(x, 32)
-        pred = self.interp_model(x.permute(0, 3, 1, 2))[:, 0, :h, :w]
+        if self.packed_conv:
+            pred = self._interp(x)[:, :h, :w]
+        else:
+            pred = self.interp_model(x.permute(0, 3, 1, 2))[:, 0, :h, :w]
         if self.pad:
             pred = pred[:, self.pad:-self.pad, self.pad:-self.pad]
         return pred.clamp(0.0, 1.0)
@@ -117,11 +177,19 @@ class SFFPipeline:
         Returns a dict of device tensors: 'fused', 'warped', 'stitch' in
         0..1 and 'flow' (N, H, W, 2).
         """
-        x = _gray6(self._to01(degraded_imgs), self._to01(interp_imgs))
-        x, (h, w) = pad_to_multiple(x.permute(0, 2, 3, 1), 32)
-        pred, flow, warped = self._restore(x.permute(0, 3, 1, 2))
-        pred = pred[:, 0, :h, :w].clamp(0.0, 1.0)
-        warped_g = warped[:, :h, :w].mean(-1).clamp(0.0, 1.0)
+        if self.packed_conv:
+            x = torch.stack([self._to01(degraded_imgs),
+                             self._to01(interp_imgs)], -1)
+            x, (h, w) = pad_to_multiple(x, 32)
+            pred, flow, warped = self._restore_packed(x)
+            pred = pred[:, :h, :w].clamp(0.0, 1.0)
+            warped_g = warped[:, :h, :w].clamp(0.0, 1.0)
+        else:
+            x = _gray6(self._to01(degraded_imgs), self._to01(interp_imgs))
+            x, (h, w) = pad_to_multiple(x.permute(0, 2, 3, 1), 32)
+            pred, flow, warped = self._restore(x.permute(0, 3, 1, 2))
+            pred = pred[:, 0, :h, :w].clamp(0.0, 1.0)
+            warped_g = warped[:, :h, :w].mean(-1).clamp(0.0, 1.0)
         # stitch at uint8 scale with no /255*255 round trip (which would drop
         # a level about half the time); each level returns centred at
         # (k+0.5)/255 so floor(x*255) recovers k

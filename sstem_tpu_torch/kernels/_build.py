@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
-source, all started together (the build takes the slowest source's time,
-not the sum; the log gives each source's seconds), and linked into one
-shared library with a plain C interface,
+``csrc/*.cu`` (with the shared header ``csrc/conv_tile.cuh``) is compiled
+with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together
+(the build takes the slowest source's time, not the sum; the log gives each
+source's seconds), and linked into one shared library with a plain C
+interface,
 ``build/sstem_tpu_torch/libsstem_kernels.so`` at the root of the checkout,
 which is loaded with ctypes. The build happens at the first call that needs
 a kernel and is cached by a hash of the sources and the flags; importing
@@ -25,6 +26,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
+HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "sstem_tpu_torch"
 LIBRARY = BUILD_DIR / "libsstem_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,6 +45,13 @@ _ENTRY_POINTS = {
                           _P],
     # im, flow, out, n, h, w, stream
     "sstem_warp_bilinear": [_P, _P, _P, _I, _I, _I, _P],
+    # x, w, scale, shift, res, out, n, h, w, cin, cout, act, res_mode, stream
+    "sstem_conv3x3_fused": [_P] * 6 + [_I] * 7 + [_P],
+    "sstem_deconv2x_fused": [_P] * 6 + [_I] * 7 + [_P],
+    # x, out, n, h, w, c, is_max, stream
+    "sstem_pool2x": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, out, n, hi, wi, cx, cin, k, stream
+    "sstem_head_tail": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 _lib = None
@@ -58,7 +67,7 @@ def _nvcc():
 
 def _digest():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
@@ -130,3 +139,26 @@ def check(rc: int, name: str):
     if rc != 0:
         msg = library().sstem_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg}) at launch")
+
+
+def require_cuda(name, *tensors):
+    """Raise unless every tensor is a contiguous CUDA tensor on one device
+    whose data is 16-byte aligned (the kernels load 16 bytes at a time)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on different devices {devices}")
+    device = next(iter(devices))
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+def stream():
+    """The current CUDA stream, as the int the C entry points take."""
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream

@@ -5,15 +5,28 @@ a CPU, so the tests take the variable tree from ``jax.eval_shape`` of
 ``.init`` (a trace, no compile; about a second, so each tree is traced once
 per process) and fill it from a numpy seed. The same numpy arrays then go to
 the flax model and, through ``sstem_tpu_torch.compat.weights``, to the port.
+
+The port's IFNet spends a second or two of its constructor on orthogonal
+init, which every test overwrites by loading weights; ``port_module`` builds
+each port class once per process and hands out copies.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from sstem_tpu.models import FusionNet, IFNet, UNetSFF
+from sstem_tpu_torch import models as port_models
+from sstem_tpu_torch.compat import (
+    fusionnet_state_dict_from_jax,
+    ifnet_state_dict_from_jax,
+    unet_sff_state_dict_from_jax,
+)
 
 _TREES = {}  # the traced shape tree by model, input shape and init kwargs
+_PORT = {}  # one constructed port module by class name and arguments
 
 
 def numpy_variables(model, seed, shape=(1, 64, 64, 6), **init_kw):
@@ -72,3 +85,28 @@ def sff_variables(kernel_size, seed=0):
     return (ifnet_variables(kernel_size, seed),
             numpy_variables(FusionNet(output_nc=2), seed + 1, train=True),
             numpy_variables(UNetSFF(1), seed + 2, train=True))
+
+
+def port_module(name, *args):
+    """A fresh port module (``IFNet``, ``FusionNet`` or ``UNetSFF`` with
+    ``args``), copied from one constructed per process: its initial weights
+    are those of a default generator, for the caller to overwrite."""
+    key = (name, args)
+    if key not in _PORT:
+        _PORT[key] = getattr(port_models, name)(*args)
+    return copy.deepcopy(_PORT[key])
+
+
+def port_sff_models(kernel_size, variables):
+    """The port's (IFNet, FusionNet, UNetSFF) in eval mode, strictly loaded
+    with the flax ``variables`` of ``sff_variables``."""
+    iv, fv, uv = variables
+    out = []
+    for name, args, to_sd, v in (
+            ("IFNet", (kernel_size,), ifnet_state_dict_from_jax, iv),
+            ("FusionNet", (), fusionnet_state_dict_from_jax, fv),
+            ("UNetSFF", (), unet_sff_state_dict_from_jax, uv)):
+        model = port_module(name, *args)
+        model.load_state_dict(to_sd(v), strict=True)
+        out.append(model.eval())
+    return tuple(out)

@@ -30,10 +30,10 @@ from sstem_tpu_torch.compat import (
     load_reference,
     unet_sff_state_dict_from_jax,
 )
-from sstem_tpu_torch.models import FusionNet, IFNet, UNetSFF
+from sstem_tpu_torch.models import FusionNet, UNetSFF
 from sstem_tpu_torch.models.layers import set_compute_dtype
 
-from _torch_port import sff_variables
+from _torch_port import port_module, sff_variables
 
 torch.set_num_threads(1)
 
@@ -43,12 +43,12 @@ K = 5
 MODELS = {
     # name: (flax module, port class, state-dict converter, JAX importer,
     #        apply kwargs)
-    "ifnet": (JaxIFNet(kernel_size=K, n_frames=1), lambda: IFNet(K),
+    "ifnet": (JaxIFNet(kernel_size=K, n_frames=1), lambda: port_module("IFNet", K),
               ifnet_state_dict_from_jax, load_torch_ifnet, {}),
-    "fusionnet": (JaxFusionNet(output_nc=2), lambda: FusionNet(),
+    "fusionnet": (JaxFusionNet(output_nc=2), lambda: port_module("FusionNet"),
                   fusionnet_state_dict_from_jax, load_torch_fusionnet,
                   {"train": False}),
-    "unet_sff": (JaxUNetSFF(out_channel=1), lambda: UNetSFF(),
+    "unet_sff": (JaxUNetSFF(out_channel=1), lambda: port_module("UNetSFF"),
                  unet_sff_state_dict_from_jax, load_torch_unet_sff,
                  {"train": False}),
 }

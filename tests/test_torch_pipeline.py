@@ -6,6 +6,12 @@ Bounds, for float32 on both sides: interp, fused and warped within 1 uint8
 level (floor quantization turns float32 rounding into at most one level);
 stitch within 1 level where both sides' ``warped8 >= 2`` masks agree, with
 the masks disagreeing on at most 0.1% of pixels; flow within 1e-3 abs.
+
+The port's fused-conv serving path (``packed_conv=True``, bf16) is held to
+the same JAX results: NRMSE below 0.05 of each output's std for interp,
+fused, warped and flow, the bound tests/test_serving.py sets between the
+JAX package's own packed forwards and its flax modules (bf16 against
+float32, one step further removed here).
 """
 
 import numpy as np
@@ -14,15 +20,10 @@ import torch
 
 from sstem_tpu.data.synthetic import synth_stack
 from sstem_tpu.infer.pipeline import SFFPipeline as JaxSFFPipeline
-from sstem_tpu_torch.compat import (
-    fusionnet_state_dict_from_jax,
-    ifnet_state_dict_from_jax,
-    unet_sff_state_dict_from_jax,
-)
+from sstem_tpu_torch.config import SERVING_DTYPE
 from sstem_tpu_torch.infer.pipeline import SFFPipeline
-from sstem_tpu_torch.models import FusionNet, IFNet, UNetSFF
 
-from _torch_port import sff_variables
+from _torch_port import port_sff_models, sff_variables
 
 torch.set_num_threads(1)
 
@@ -34,12 +35,7 @@ IDS = [1, 3]
 def pipelines():
     """(JAX pipeline, port pipeline) on the same numpy weights."""
     iv, fv, uv = sff_variables(K, seed=30)
-    interp = IFNet(K)
-    interp.load_state_dict(ifnet_state_dict_from_jax(iv), strict=True)
-    flow = FusionNet()
-    flow.load_state_dict(fusionnet_state_dict_from_jax(fv), strict=True)
-    fusion = UNetSFF()
-    fusion.load_state_dict(unet_sff_state_dict_from_jax(uv), strict=True)
+    interp, flow, fusion = port_sff_models(K, (iv, fv, uv))
     return (JaxSFFPipeline(interp_vars=iv, flow_vars=fv, fusion_vars=uv,
                            kernel_size=K, packed_conv=False),
             SFFPipeline(interp, flow, fusion, device="cpu"))
@@ -86,7 +82,9 @@ def jax_results(pipelines):
 
 
 @pytest.mark.parametrize("method", ["restore_stack_scanned", "restore_stack"])
-@pytest.mark.parametrize("hw", [(96, 96), (83, 101)])
+# (83, 75) pads to (96, 96), so the JAX side reuses the functions it
+# compiled for the first case
+@pytest.mark.parametrize("hw", [(96, 96), (83, 75)])
 def test_port_pipeline_matches_jax(pipelines, jax_results, hw, method):
     got = getattr(pipelines[1], method)(synth_stack(5, *hw, seed=3), IDS)
     _assert_within_bounds(got, jax_results(hw, method))
@@ -94,9 +92,9 @@ def test_port_pipeline_matches_jax(pipelines, jax_results, hw, method):
 
 def test_port_test_pad_matches_jax(pipelines):
     """TEST.pad: a symmetric zero pad around the interp input, then a crop.
-    83 + 2*6 rounds up to the same 32-multiple as 83, so the JAX side reuses
-    its compiled functions."""
-    stack = synth_stack(5, 83, 101, seed=4)
+    83 + 2*6 and 75 + 2*6 round up to the same 32-multiples as 83 and 75, so
+    the JAX side reuses its compiled functions."""
+    stack = synth_stack(5, 83, 75, seed=4)
     results = []
     for pipe in pipelines:
         pipe.pad = 6
@@ -117,3 +115,44 @@ def test_check_interior_rejects_boundary_sections(pipelines, bad):
     for method in (pipe.restore_stack, pipe.restore_stack_scanned):
         with pytest.raises(ValueError, match="z-neighbor"):
             method(stack, [2, bad])
+
+
+def _packed(pipelines, fused_head_tail=False):
+    """The port's packed_conv=True pipeline on the float32 pipeline's
+    modules (the packed path reads their weights and does not cast them)."""
+    p = pipelines[1]
+    return SFFPipeline(p.interp_model, p.flow_model, p.fusion_model, "cpu",
+                       dtype=SERVING_DTYPE, packed_conv=True,
+                       fused_head_tail=fused_head_tail)
+
+
+def _nrmse_report(got, want, ids):
+    """{output: NRMSE of got against want, relative to want's std}; prints
+    the largest uint8 level difference and the share of pixels more than 1
+    level apart."""
+    out = {}
+    for key in ("interp", "fused", "warped", "flow"):
+        a = np.stack([got[i][key] for i in ids]).astype(np.float64)
+        b = np.stack([want[i][key] for i in ids]).astype(np.float64)
+        out[key] = float(np.sqrt(np.mean((a - b) ** 2)) / b.std())
+        if key != "flow":
+            d = np.abs(a - b)
+            print(f"{key}: nrmse {out[key]:.4f}, max level diff {d.max():.0f}, "
+                  f"share > 1 level {(d > 1).mean():.5f}")
+    return out
+
+
+def test_packed_pipeline_matches_jax(pipelines, jax_results):
+    hw = (96, 96)
+    got = _packed(pipelines).restore_stack_scanned(synth_stack(5, *hw, seed=3),
+                                                   IDS)
+    nrmse = _nrmse_report(got, jax_results(hw, "restore_stack_scanned"), IDS)
+    assert all(v < 0.05 for v in nrmse.values()), nrmse
+
+
+def test_packed_fused_head_tail_matches_unfused(pipelines):
+    stack = synth_stack(5, 96, 96, seed=3)
+    want = _packed(pipelines).restore_stack(stack, IDS)
+    got = _packed(pipelines, fused_head_tail=True).restore_stack(stack, IDS)
+    nrmse = _nrmse_report(got, want, IDS)
+    assert all(v < 0.05 for v in nrmse.values()), nrmse

@@ -34,11 +34,10 @@ from sstem_tpu_torch.compat.weights import ifnet_state_dict_from_jax, load_refer
 from sstem_tpu_torch.data import providers
 from sstem_tpu_torch.data.synthetic import write_triplet_tree
 from sstem_tpu_torch.metrics import compute_psnr
-from sstem_tpu_torch.models import IFNet
 from sstem_tpu_torch.train.schedules import poly_warmup_decay_lr
 from sstem_tpu_torch.train.trainer import make_optimizer
 
-from _torch_port import ifnet_variables
+from _torch_port import ifnet_variables, port_module
 
 torch.set_num_threads(1)
 
@@ -51,7 +50,7 @@ ALL_AUGS = dict(swap=True, color_jitter=True, gauss_noise=True,
 def port_ifnet():
     """One IFNet(K) for the tests that load weights into it (its
     orthogonal init costs seconds on a CPU)."""
-    return IFNet(K)
+    return port_module("IFNet", K)
 
 
 @pytest.fixture(scope="module")
