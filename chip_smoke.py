@@ -37,6 +37,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      under torch.profiler each
  15. the new kernels at their full-width shapes (CUDA events) beside their
      plain versions, their bounds and one library call for the same work
+ 16. the probe kernels (tile copy, gather, dynamic roll; exact) and conv3x3
+     at up to 128 channels vs their plain versions, at the SP path's and the
+     probes' shapes and at odd sizes
+ 17. SPPipeline.restore on the card vs on the CPU (K=51, two quartets of
+     150 x 170): float32 with TF32 off, and the packed_conv=True path in
+     bfloat16 on both sides
+ 18. full width SP: bench_sp.py's workload (6 quartets of 1250^2, batch 2,
+     K=51, bfloat16) on the cuDNN and the packed path: launch counts per
+     batch asserted, ms/quartet, MP/s, peak memory, one run under
+     torch.profiler each; then conv3x3 at the 128-channel shapes and the
+     SP pool beside their plain versions, library calls and bounds
+ 19. the probes through their entry points (probe_dma_conv, probe_gather
+     --parity and --bench, micro_bench) with launch counts asserted, then
+     each probe kernel at the JAX probes' shapes beside its plain version,
+     its library call and its bound (CUDA events)
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -119,18 +134,6 @@ def assert_sepconv_close(label, got, want, shape):
     say(f"{label} max_abs_err", float(err.max()))
     assert ok, f"{label}: kernel disagrees with the plain version (tol {tol})"
     return float(err.max())
-
-
-def fold_flows(n, h, w, seed):
-    """(n, h, w, 2) ground-truth unfolding flows of random fold lines."""
-    from sstem_tpu_torch.ops.flow import gen_flow_np, gen_line
-
-    rng = np.random.default_rng(seed)
-    flows = []
-    for _ in range(n):
-        k, b = gen_line((rng.uniform(0, h), 0.0), (rng.uniform(0, h), w - 1.0))
-        flows.append(gen_flow_np(h, w, k, b, line_width=8, fold_width=40)[1])
-    return torch.from_numpy(np.stack(flows)).cuda()
 
 
 def check_warp(im, flow, label):
@@ -886,6 +889,506 @@ def packed_phases(gen, stack, ids):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 16-19: the SP quartet restore and the micro-probes
+# ---------------------------------------------------------------------------
+
+def he_init_(module, gen):
+    """He-uniform conv weights (variance 2 / fan_in), conv biases U(+-0.05)
+    and a BatchNorm that does real work (weight 1 + N(0, 0.1), bias and
+    running mean N(0, 0.1), running var U(0.5, 1.5)), drawn from ``gen``, as
+    the CPU tests' numpy weights are: the U-Nets' activations then keep
+    their scale through the ReLUs, where PyTorch's default init shrinks
+    them to a near-constant output that hides the kernels."""
+    import math
+
+    from torch import nn
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.uniform_(-1, 1, generator=gen).mul_(
+                    math.sqrt(6.0 / fan_in))
+                m.bias.uniform_(-0.05, 0.05, generator=gen)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.normal_(1.0, 0.1, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    return module
+
+
+_SP_MODELS = {}
+
+
+def build_sp_pipeline(device, dtype, seed=SEED, kernel_size=K,
+                      packed_conv=False):
+    """SPPipeline on seeded random weights: IFNet(K, n_frames=2) with each
+    kernel head's last conv rescaled as ``build_pipeline`` does, UNetSP and
+    FusionNetSP by ``he_init_`` with the 1x1 output conv scaled by 0.1 and
+    its bias set for a mean output of 0.5, so that the outputs are not
+    clipped flat. The models are made once per seed (the
+    orthogonal init takes seconds) and each pipeline gets copies."""
+    import copy
+
+    from sstem_tpu_torch.infer.pipeline import SPPipeline
+    from sstem_tpu_torch.models import FusionNetSP, IFNet, UNetSP
+    from sstem_tpu_torch.models.ifnet import HEADS
+
+    key = (seed, kernel_size)
+    if key not in _SP_MODELS:
+        g = torch.Generator().manual_seed(seed)
+        vfi = IFNet(kernel_size, n_frames=2, generator=g)
+        with torch.no_grad():
+            for frame in HEADS[2]:
+                for name in frame:
+                    head = getattr(vfi, name)
+                    head[7].weight.mul_(0.002)
+                    head[7].bias.mul_(0.2).add_(
+                        1.0 / (kernel_size * 2 ** 0.5))
+        nets = he_init_(UNetSP(), g), he_init_(FusionNetSP(), g)
+        # outputs around 0.5, mostly inside 0..1: the 1x1 output conv scaled
+        # by 0.1 and its bias set so that the mean output on a unit-range
+        # probe image is 0.5
+        probe = torch.rand((1, 1, 64, 64), generator=g)
+        with torch.no_grad():
+            for net, args in zip(nets, ((probe,), (probe * 0.5, probe * 0.5))):
+                net.eval()
+                net.outc.conv.weight.mul_(0.1)
+                net.outc.conv.bias.zero_()
+                net.outc.conv.bias.fill_(0.5 - float(net(*args).mean()))
+        _SP_MODELS[key] = (vfi, *nets)
+    return SPPipeline(*copy.deepcopy(_SP_MODELS[key]), device=device,
+                      dtype=dtype, packed_conv=packed_conv)
+
+
+def quartets(stack, masks, base):
+    """(img1, img4, deg2, deg3, mask2, mask3) of the quartets starting at
+    the section ids ``base``: sections b, b+3 are the intact neighbours,
+    b+1 and b+2 the damaged ones with their masks (bench_sp.py:141-145)."""
+    b = torch.as_tensor(base, device=stack.device)
+    return (stack[b], stack[b + 3], stack[b + 1], stack[b + 2], masks[b + 1],
+            masks[b + 2])
+
+
+SP_OUTPUTS = ("pred1", "pred2", "vfi1", "vfi2", "denoise1", "denoise2")
+
+
+# NRMSE limit of the SP packed path, card vs CPU, bf16 on both sides: the
+# JAX package's bound between its packed forwards and flax
+# (tests/test_serving.py). Every SP output ends in a bf16 rounding (the
+# sepconvs' and the U-Nets' last conv's outputs) at values of 0.4-0.7, where
+# one bf16 ulp (0.0039, one uint8 level) is 5-13% of the outputs' std at
+# these weights (0.03-0.08), so single-ulp flips between two f32 sum orders
+# alone read 0.02-0.03 (PERF.md, §6).
+SP_PACKED_NRMSE = 0.05
+
+
+def sp_card_vs_cpu():
+    """Phase 17: SPPipeline.restore on the card against the CPU on two
+    quartets of a 150 x 170 stack, in float32 (TF32 off, 1e-3 abs) and on
+    the packed path in bf16 on both sides (NRMSE below SP_PACKED_NRMSE of
+    each output's std)."""
+    from sstem_tpu_torch import config
+    from sstem_tpu_torch.data import synth_stack
+
+    stack = torch.from_numpy(synth_stack(8, 150, 170, seed=SEED))
+    rng = np.random.default_rng(SEED)
+    masks = torch.from_numpy(np.stack(
+        [np.full((150, 170), 128, np.uint8)] * 8))
+    masks[2::4] = torch.from_numpy(
+        (rng.random((2, 150, 170)) > 0.8).astype(np.uint8) * 255)
+    args = quartets(stack, masks, [0, 4])
+    for dtype, packed in ((config.PARITY_DTYPE, False),
+                          (config.SERVING_DTYPE, True)):
+        label = f"sp card-vs-cpu {str(dtype).removeprefix('torch.')}" + (
+            " packed" if packed else "")
+        outs = [build_sp_pipeline(dev, dtype, packed_conv=packed).restore(
+            *(a.to(dev) for a in args)) for dev in (DEV, "cpu")]
+        bad = []
+        for key in SP_OUTPUTS:
+            a = outs[0][key].float().cpu().double()
+            b = outs[1][key].float().double()
+            assert a.shape == b.shape == (2, 150, 170), (key, a.shape)
+            assert bool(torch.isfinite(a).all()), key
+            err = float((a - b).abs().max())
+            levels = (torch.floor(a * 255) - torch.floor(b * 255)).abs()
+            say(f"{label} {key} max_abs_err", err)
+            say(f"{label} {key} max_level_diff", int(levels.max()))
+            say(f"{label} {key} share > 1 level", float((levels > 1).double().mean()))
+            if packed:
+                nrmse = float(((a - b) ** 2).mean().sqrt() / b.std())
+                say(f"{label} {key} nrmse (of std {float(b.std())})", nrmse)
+                say(f"{label} {key} share off by more than 1 bf16 ulp",
+                    float(((a - b).abs() > bf16_ulp(torch.maximum(a.abs(), b.abs())))
+                          .double().mean()))
+                if not nrmse < SP_PACKED_NRMSE:
+                    bad.append((key, nrmse))
+            elif not err <= 1e-3:
+                bad.append((key, err))
+        assert not bad, (label, bad)
+
+
+# launches per batch of 2 quartets on the SP paths (models/serving.py and
+# models/ifnet.py): the two-frame IFNet makes 2 sepconvs per frame on both
+# paths; on the packed path each of the 4 U-Net forwards (denoise x2,
+# fusion x2) makes 11 conv3x3 launches (inc 2, down1 2, up3 and up4 a split
+# concat conv of 2 plus conv1, outc 1) and 1 pool (before down1)
+SP_LAUNCHES = {"cudnn": {"sepconv_fwd": 4},
+               "packed": {"sepconv_fwd": 4, "conv3x3_fused": 44, "pool2x": 4}}
+SP_QUARTETS, SP_BATCH, SP_SIZE = 6, 2, 1250
+
+
+def sp_full_width(path, stack, masks):
+    """Phase 18 on one path: the workload bench_sp.py:40-122 defines (6
+    quartets of 1250^2, batch 2, K=51, bf16). Returns (launch counts of one
+    run, ms per quartet)."""
+    from sstem_tpu_torch import config
+
+    wrappers = counted_kernels()
+    pipe = build_sp_pipeline("cuda", config.SERVING_DTYPE,
+                             packed_conv=path == "packed")
+    batches = [list(range(b, b + 4 * SP_BATCH, 4))
+               for b in range(0, 4 * SP_QUARTETS, 4 * SP_BATCH)]
+
+    def run():
+        return [pipe.restore(*quartets(stack, masks, ids)) for ids in batches]
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    outs = run()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    name = f"sp full bfloat16 {path}"
+    for k, n in launches.items():
+        say(f"{name} {k} launches (per batch of {SP_BATCH})",
+            f"{n} ({n / len(batches)})")
+    want = {k: SP_LAUNCHES[path].get(k, 0) * len(batches) for k in wrappers}
+    assert launches == want, (launches, want)
+    for out in outs:
+        for key in SP_OUTPUTS:
+            t = out[key]
+            assert t.shape == (SP_BATCH, SP_SIZE, SP_SIZE), (key, t.shape)
+            assert bool(torch.isfinite(t).all()), key
+    say(f"{name} pred mean level",
+        float(torch.stack([o["pred1"] for o in outs]).mean() * 255))
+    del outs
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1000 / SP_QUARTETS
+    say(f"{name} ms_per_quartet (median of 5)", ms)
+    say(f"{name} ms_per_quartet runs", [t * 1000 / SP_QUARTETS for t in times])
+    say(f"{name} MP_per_s (2 x 1250^2 output pixels per quartet)",
+        2 * SP_SIZE ** 2 / ms / 1e3)
+    say(f"{name} peak_memory_GiB", torch.cuda.max_memory_allocated() / 2 ** 30)
+    profile_runs(name, run, 1, SP_QUARTETS, "quartet", f"sp_{path}_profile.json")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def check_exact(label, got, want):
+    """A probe kernel's output against its plain version's: bit-exact (NaN
+    where both are NaN)."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype, label
+    same = bool(torch.equal(got, want)) or bool(
+        ((got == want) | (got.isnan() & want.isnan())).all())
+    say(f"{label} exact", same)
+    assert same, f"{label}: kernel differs from the plain version"
+    return 0.0
+
+
+def check_probe_kernels(gen):
+    """Phase 16: the probe kernels (exact) and conv3x3_fused at up to 128
+    channels (1 bf16 ulp + 2^-14 of the max) against their plain versions,
+    at the SP path's and the probes' shapes and at odd sizes."""
+    from sstem_tpu_torch.kernels import (
+        roll_dynamic, roll_dynamic_plain, take_along_axis,
+        take_along_axis_plain, tile_copy, tile_copy_plain)
+    from sstem_tpu_torch.tools import probe_dma_conv, probe_gather
+
+    err = {"pool2x": check_pool(2, 1280, 1280, 64, "max", gen),
+           "conv3x3_fused": max(
+        check_conv(2, 1280, 1280, 1, 64, "relu", None, gen),
+        check_conv(2, 1280, 1280, 64, 64, "relu", "pre", gen),
+        check_conv(2, 1280, 1280, 64, 1, None, None, gen),
+        check_conv(2, 640, 640, 64, 128, "relu", None, gen),
+        check_conv(2, 640, 640, 128, 128, "relu", None, gen),
+        check_conv(2, 640, 640, 128, 128, "relu", "pre", gen),
+        check_conv(2, 640, 640, 128, 64, "relu", None, gen),
+        check_conv(2, 37, 53, 128, 128, "leaky", "post", gen),
+        check_conv(2, 37, 53, 100, 90, "relu", "pre", gen))}
+    for _, shape in probe_dma_conv.COPY_SHAPES + (("odd", (7, 13, 3)),):
+        x = randn(shape, gen)
+        check_exact(f"probe_copy {shape}", tile_copy(x, probe_dma_conv.COPY_TY),
+                    tile_copy_plain(x))
+    for _, shape in (("odd bytes", (1001,)),):
+        x = torch.randint(0, 256, shape, generator=gen, device=DEV,
+                          dtype=torch.uint8)
+        check_exact(f"probe_copy uint8 {shape} ty=3", tile_copy(x, 3),
+                    tile_copy_plain(x))
+    for axis, rows, cols in probe_gather.GATHER_CASES:
+        src, idx = probe_gather.gather_inputs(axis, rows, cols, DEV, gen)
+        idx[0, :3] = torch.tensor([-1, rows + cols, -(rows + cols)])
+        check_exact(f"probe_gather axis={axis} {rows}x{cols}",
+                    take_along_axis(src, idx, axis),
+                    take_along_axis_plain(src, idx, axis))
+    for rows, cols in probe_gather.ROLL_CASES:
+        src = torch.rand((rows, cols), generator=gen, device=DEV)
+        for shift in (probe_gather.ROLL_SHIFT, -3, 3 * cols + 1):
+            s = torch.tensor([shift], dtype=torch.int32, device=DEV)
+            check_exact(f"probe_roll {rows}x{cols} shift {shift}",
+                        roll_dynamic(src, s), roll_dynamic_plain(src, s))
+    err.update({"probe_copy": 0.0, "probe_gather": 0.0, "probe_roll": 0.0})
+    return err
+
+
+# launches of the probes' entry points at their defaults: copy 4 shapes x
+# (1 check + 3 warm + 8 timed); conv 3 cases x (1 check + 3 + 8); gather 8
+# cases and roll 2 x (3 + 6); warp parity 5 cases + bench 2 x (3 + 6);
+# micro_bench 2 x (2 warm + 10 timed)
+PROBE_LAUNCHES = {"probe_copy": 48, "conv3x3_fused": 36, "probe_gather": 72,
+                  "probe_roll": 18, "warp_bilinear": 23, "sepconv_fwd": 24}
+
+
+def probe_wrappers():
+    from sstem_tpu_torch import kernels
+
+    return {"probe_copy": kernels.tile_copy,
+            "conv3x3_fused": kernels.conv3x3_fused,
+            "probe_gather": kernels.take_along_axis,
+            "probe_roll": kernels.roll_dynamic,
+            "warp_bilinear": kernels.serving_warp,
+            "sepconv_fwd": kernels.sepconv_planar}
+
+
+def run_probes():
+    """Phase 19a: the probes through their entry points (the main() that
+    ``python -m sstem_tpu_torch.tools.<probe>`` runs), with every probe
+    kernel's count set to 0 just before and read just after."""
+    from sstem_tpu_torch.tools import micro_bench, probe_dma_conv, probe_gather
+
+    wrappers = probe_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    assert probe_dma_conv.main([]) == 0
+    assert probe_gather.main(["--parity"]) == 0
+    assert probe_gather.main(["--bench"]) == 0
+    assert micro_bench.main([]) == 0
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    for k, n in launches.items():
+        say(f"probes {k} launches", n)
+    assert launches == PROBE_LAUNCHES, (launches, PROBE_LAUNCHES)
+    return launches
+
+
+def time_probe_kernels(gen, err):
+    """Phase 19b: each probe kernel at the JAX probes' shapes, by CUDA
+    events, beside its plain version, one library call for the same work
+    and its bound; the sepconv kernel at micro_bench's shape is checked
+    against its plain version first (its error goes into ``err``). Returns
+    {name: (ms, plain_ms, library_ms, bound_ms, bound_by)}."""
+    import torch.nn.functional as F
+
+    from sstem_tpu_torch.kernels import (
+        conv3x3_fused, conv3x3_fused_plain, fold_affine, roll_dynamic,
+        roll_dynamic_plain, sepconv_planar, sepconv_planar_plain,
+        take_along_axis, take_along_axis_plain, tile_copy, tile_copy_plain)
+    from sstem_tpu_torch.ops import replication_pad_2d
+    from sstem_tpu_torch.tools import probe_dma_conv, probe_gather
+
+    out = {}
+    for label, shape in probe_dma_conv.COPY_SHAPES:
+        x = randn(shape, gen)
+        y = torch.empty_like(x)
+        nbytes = 2 * x.numel() * x.element_size()
+        name = f"probe_copy[{'x'.join(map(str, shape))} bf16]"
+        out[name] = (cuda_ms(lambda: tile_copy(x, probe_dma_conv.COPY_TY), 20, 3),
+                     cuda_ms(lambda: tile_copy_plain(x), 20, 3),
+                     cuda_ms(lambda: y.copy_(x), 20, 3),
+                     *roofline(nbytes, 0, BF16_FLOP_PER_S))
+        del x, y
+    for c, co, hw in probe_dma_conv.CONV_CASES:
+        x = randn((1, hw, hw, c), gen)
+        wt = randn((3, 3, c, co), gen, 1.0 / (3 * c))
+        scale, shift = fold_affine(co)
+        scale, shift = scale.to(DEV), shift.to(DEV)
+        w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        nbytes = 2 * (hw * hw * (c + co) + 9 * c * co) + 8 * co
+        out[f"conv3x3_fused[probe {c}->{co}@{hw}^2]"] = (
+            cuda_ms(lambda: conv3x3_fused(x, wt, scale, shift, None), 20, 3),
+            cuda_ms(lambda: conv3x3_fused_plain(x, wt, scale, shift, None), 3),
+            cuda_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_cl, padding=1), 20, 3),
+            *roofline(nbytes, 2 * hw * hw * 9 * c * co, BF16_FLOP_PER_S))
+        del x, wt, w_cl
+    for axis, rows, cols in probe_gather.GATHER_CASES:
+        src, idx = probe_gather.gather_inputs(axis, rows, cols, DEV, gen)
+        idx64 = idx.long()
+        out[f"probe_gather[axis={axis} {rows}x{cols}]"] = (
+            cuda_ms(lambda: take_along_axis(src, idx, axis), 50, 5),
+            cuda_ms(lambda: take_along_axis_plain(src, idx, axis), 50, 5),
+            cuda_ms(lambda: torch.gather(src, axis, idx64), 50, 5),
+            *roofline(12 * rows * cols, 0, F32_FLOP_PER_S))
+    for rows, cols in probe_gather.ROLL_CASES:
+        src = torch.rand((rows, cols), generator=gen, device=DEV)
+        shift = torch.tensor([probe_gather.ROLL_SHIFT], dtype=torch.int32,
+                             device=DEV)
+        out[f"probe_roll[{rows}x{cols}]"] = (
+            cuda_ms(lambda: roll_dynamic(src, shift), 50, 5),
+            cuda_ms(lambda: roll_dynamic_plain(src, shift), 50, 5),
+            cuda_ms(lambda: torch.roll(src, int(shift.item()), 1), 50, 5),
+            *roofline(8 * rows * cols + 4, 0, F32_FLOP_PER_S))
+    image = rand((1, 1, 1280, 1280), gen)
+    v = rand((1, K, 1280, 1280), gen, 2.0 / K)
+    h = rand((1, K, 1280, 1280), gen, 2.0 / K)
+    padded = replication_pad_2d(image, K // 2).contiguous()
+    err["sepconv_fwd"] = assert_sepconv_close(
+        "sepconv micro_bench 1x1x1280x1280 K=51 f32",
+        sepconv_planar(padded, v, h), sepconv_planar_plain(padded, v, h),
+        (1, 1, 1280, 1280))
+    out["sepconv_fwd[micro_bench 1x1x1280^2 f32]"] = (
+        cuda_ms(lambda: sepconv_planar(padded, v, h), 10, 2),
+        cuda_ms(lambda: sepconv_planar_plain(padded, v, h), 2),
+        None, *sepconv_bound(1, 1, 1280, 1280, K, 4, 4, False))
+    del image, v, h, padded
+    for name, (ms, plain, lib, b, by) in out.items():
+        say(f"{name} kernel_ms", ms)
+        say(f"{name} plain_ms", plain)
+        say(f"{name} library_ms", lib)
+        say(f"{name} bound_ms ({by})", b)
+    return out
+
+
+def time_sp_kernels(gen):
+    """Phase 18b: conv3x3_fused at the SP path's 128-channel shapes and the
+    SP pool, by CUDA events, beside the plain version, cuDNN's conv (plus
+    the epilogue as separate ops) or F.max_pool2d, and the bound."""
+    import torch.nn.functional as F
+
+    from sstem_tpu_torch.kernels import (
+        conv3x3_fused, conv3x3_fused_plain, pool2x, pool2x_plain)
+
+    out = {}
+    cl = torch.channels_last
+    for cin, cout, res in ((64, 128, None), (128, 128, "pre"), (128, 64, None)):
+        n, hw = SP_BATCH, 640
+        x, wt, scale, shift, r = conv_inputs(n, hw, hw, cin, cout, gen, res)
+        w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+        pre = res == "pre"
+
+        def library():
+            y = F.conv2d(x.permute(0, 3, 1, 2), w_cl, padding=1).float()
+            if r is not None:
+                y = y + r.permute(0, 3, 1, 2).float()
+            return torch.relu(y * scale[:, None, None]
+                              + shift[:, None, None]).to(torch.bfloat16)
+
+        nbytes = 2 * (n * hw * hw * (cin + cout * (2 if r is not None else 1))
+                      + 9 * cin * cout) + 8 * cout
+        name = f"conv3x3_fused[{cin}->{cout}@{n}x{hw}^2{' res pre' if pre else ''}]"
+        out[name] = (
+            cuda_ms(lambda: conv3x3_fused(x, wt, scale, shift, "relu", r, pre), 20, 3),
+            cuda_ms(lambda: conv3x3_fused_plain(x, wt, scale, shift, "relu", r, pre), 3),
+            cuda_ms(library, 20, 3),
+            *roofline(nbytes, 2 * n * hw * hw * 9 * cin * cout, BF16_FLOP_PER_S))
+        del x, wt, r, w_cl
+    x = randn((SP_BATCH, 1280, 1280, 64), gen)
+    out["pool2x[max C64@2x1280^2]"] = (
+        cuda_ms(lambda: pool2x(x, "max"), 50, 3),
+        cuda_ms(lambda: pool2x_plain(x, "max"), 5),
+        cuda_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2), 50, 3),
+        *roofline(2 * x.numel() * 5 // 4, x.numel() * 3 // 4, F32_FLOP_PER_S))
+    del x
+    for name, (ms, plain, lib, b, by) in out.items():
+        say(f"{name} kernel_ms", ms)
+        say(f"{name} plain_ms", plain)
+        say(f"{name} library_ms", lib)
+        say(f"{name} bound_ms ({by})", b)
+    return out
+
+
+def sp_and_probe_phases(gen):
+    """Phases 16-19. Returns what the kernels' JSON line needs."""
+    from sstem_tpu_torch.data import synth_stack
+
+    res = {}
+    phase("16 probe kernels and conv3x3 at 128 channels vs plain")
+    res["err"] = check_probe_kernels(gen)
+
+    phase("17 SP restore card vs cpu (K=51, 150 x 170, two quartets)")
+    sp_card_vs_cpu()
+
+    phase("18 full width SP: 6 quartets of 1250^2, batch 2, K=51, bf16")
+    stack = torch.from_numpy(synth_stack(4 * SP_QUARTETS, SP_SIZE, SP_SIZE,
+                                         seed=SEED)).to(DEV)
+    rng = np.random.default_rng(3)
+    masks = torch.from_numpy(
+        (rng.random(tuple(stack.shape)) > 0.8).astype(np.uint8) * 255).to(DEV)
+    runs = {path: sp_full_width(path, stack, masks)
+            for path in ("cudnn", "packed")}
+    for path, (_, ms) in runs.items():
+        say(f"sp full bfloat16 {path} ms_per_quartet, this phase", ms)
+    say("sp full packed speedup over cudnn", runs["cudnn"][1] / runs["packed"][1])
+    res["sp_launches"] = runs["packed"][0]
+    del stack, masks
+    torch.cuda.empty_cache()
+    res["sp_times"] = time_sp_kernels(gen)
+
+    phase("19 the probes at their JAX shapes (CUDA events)")
+    res["probe_launches"] = run_probes()
+    res["probe_times"] = time_probe_kernels(gen, res["err"])
+    return res
+
+
+SP_KERNELS = (
+    # JSON name prefix, source, TPU kernel body, where its launches come from
+    ("conv3x3_fused[probe", "sstem_tpu_torch/csrc/conv3x3_fused.cu",
+     "tools/probe_dma_conv.py:84", "probe_launches"),
+    ("conv3x3_fused", "sstem_tpu_torch/csrc/conv3x3_fused.cu",
+     "sstem_tpu/kernels/conv3x3.py:124", "sp_launches"),
+    ("pool2x", "sstem_tpu_torch/csrc/pool2x.cu",
+     "sstem_tpu/kernels/pool.py:45", "sp_launches"),
+    ("probe_copy", "sstem_tpu_torch/csrc/probe_copy.cu",
+     "tools/probe_dma_conv.py:48", "probe_launches"),
+    ("probe_gather", "sstem_tpu_torch/csrc/probe_gather.cu",
+     "tools/probe_gather.py:134", "probe_launches"),
+    ("probe_roll", "sstem_tpu_torch/csrc/probe_roll.cu",
+     "tools/probe_gather.py:156", "probe_launches"),
+    ("sepconv_fwd[micro_bench", "sstem_tpu_torch/csrc/sepconv_fwd.cu",
+     "tools/micro_bench.py:69", "probe_launches"),
+)
+
+
+def sp_kernel_entries(res):
+    """JSON entries of phases 16-19, one per timed shape; the launches are
+    the kernel's in the SP packed path's run (phase 18) or in the probes'
+    run (phase 19a), all shapes together."""
+    entries = []
+    times = {**res["sp_times"], **res["probe_times"]}
+    for name, (ms, plain, lib, b, by) in times.items():
+        prefix, source, replaces, where = next(
+            k for k in SP_KERNELS if name.startswith(k[0]))
+        kernel = name.split("[")[0]
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": res[where][kernel],
+            "max_abs_err": res["err"].get(kernel, 0.0), "ms": ms,
+            "plain_ms": plain, "bound_ms": b, "bound_by": by,
+            "library_ms": lib})
+    return entries
+
+
 NEW_KERNELS = (
     # JSON name prefix, kernel, source, TPU kernel body, launches' path
     ("conv3x3_fused", "sstem_tpu_torch/csrc/conv3x3_fused.cu",
@@ -941,6 +1444,7 @@ def main():
         sepconv_planar_plain,
         serving_warp,
     )
+    from sstem_tpu_torch.ops.flow import fold_flows
     from sstem_tpu_torch.ops.warp import spatial_transform
 
     config.disable_tf32()
@@ -968,7 +1472,7 @@ def main():
 
     phase("4 warp kernel vs plain")
     im = rand((4, 1280, 1280, 1), gen)
-    fold = fold_flows(4, 1280, 1280, SEED)
+    fold = torch.from_numpy(fold_flows(4, 1280, 1280, SEED)).cuda()
     warp_err = check_warp(im, fold, "fold")
     far = (rand((4, 1280, 1280, 2), gen) - 0.5) * (6 * 1280)
     warp_err = max(warp_err, check_warp(im, far, "far-out-of-range"))
@@ -1045,6 +1549,8 @@ def main():
     del image, vert, horz, grad
 
     packed = packed_phases(gen, stack, ids)
+    del stack
+    sp = sp_and_probe_phases(gen)
 
     kernels = []
     for name, dt in (("f32", f32), ("bf16", bf16)):
@@ -1089,6 +1595,7 @@ def main():
         "ms": times["sepconv_bwd"][0], "plain_ms": times["sepconv_bwd"][1],
         "bound_ms": bound, "bound_by": by, "library_ms": None})
     kernels += new_kernel_entries(packed)
+    kernels += sp_kernel_entries(sp)
     for kern in kernels:
         say(f"{kern['name']} bound_ms ({kern['bound_by']})", kern["bound_ms"])
     print(json.dumps({"kernels": kernels}))

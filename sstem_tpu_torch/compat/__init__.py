@@ -3,6 +3,7 @@ from sstem_tpu_torch.compat.weights import (
     ifnet_state_dict_from_jax,
     load_reference,
     unet_sff_state_dict_from_jax,
+    unet_sp_state_dict_from_jax,
 )
 
 __all__ = [
@@ -10,4 +11,5 @@ __all__ = [
     "ifnet_state_dict_from_jax",
     "load_reference",
     "unet_sff_state_dict_from_jax",
+    "unet_sp_state_dict_from_jax",
 ]

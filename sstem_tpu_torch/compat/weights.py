@@ -48,8 +48,20 @@ def _put(sd, prefix, entries):
         sd[f"{prefix}.{k}"] = v
 
 
-def ifnet_state_dict_from_jax(variables):
-    """IFNet (1 frame) flax variables -> port/reference state dict."""
+# the JAX IFNet's head names -> the reference's, by n_frames
+# (torch_ckpt.py::load_torch_ifnet)
+_IFNET_HEADS = {
+    1: (("head2h", "upconv51_1"), ("head2v", "upconv51_2"),
+        ("head1h", "upconv51_3"), ("head1v", "upconv51_4")),
+    2: tuple((f"{head}_f{f}", f"upconv51_{f}{i}") for f in (1, 2)
+             for i, head in enumerate(("head1h", "head1v", "head2h",
+                                       "head2v"), 1)),
+}
+
+
+def ifnet_state_dict_from_jax(variables, n_frames=1):
+    """IFNet (``n_frames`` 1 or 2) flax variables -> port/reference state
+    dict."""
     p = variables["params"]
     sd = {}
     for name in ["conv32", "conv64", "conv128", "conv256", "conv512",
@@ -58,8 +70,7 @@ def ifnet_state_dict_from_jax(variables):
             _put(sd, f"{name}.{idx}", _conv(p[name][j]))
     for name in ["upsamp512", "upsamp256", "upsamp128", "upsamp64"]:
         _put(sd, f"{name}.1", _conv(p[name]["conv"]))
-    for ours, theirs in (("head2h", "upconv51_1"), ("head2v", "upconv51_2"),
-                         ("head1h", "upconv51_3"), ("head1v", "upconv51_4")):
+    for ours, theirs in _IFNET_HEADS[n_frames]:
         for j, idx in (("conv0", 0), ("conv1", 2), ("conv2", 4), ("conv3", 7)):
             _put(sd, f"{theirs}.{idx}", _conv(p[ours][j]))
     return sd
@@ -119,14 +130,49 @@ def unet_sff_state_dict_from_jax(variables):
     return sd
 
 
+def unet_sp_state_dict_from_jax(variables):
+    """UNetSP or FusionNetSP flax variables (one ``backbone``) -> port/
+    reference (milesial) state dict."""
+    p = variables["params"]["backbone"]
+    s = variables["batch_stats"]["backbone"]
+    sd = {}
+
+    def double_conv(prefix, dp, ds):
+        _put(sd, f"{prefix}.0", _conv(dp["conv0"]))
+        _put(sd, f"{prefix}.1", _bn(dp["bn0"], ds["bn0"]))
+        _put(sd, f"{prefix}.3", _conv(dp["conv1"]))
+        _put(sd, f"{prefix}.4", _bn(dp["bn1"], ds["bn1"]))
+
+    double_conv("inc.double_conv", p["inc"], s["inc"])
+    for i in range(1, 5):
+        double_conv(f"down{i}.maxpool_conv.1.double_conv",
+                    p[f"down{i}"]["conv"], s[f"down{i}"]["conv"])
+        double_conv(f"up{i}.conv.double_conv", p[f"up{i}"]["conv"],
+                    s[f"up{i}"]["conv"])
+    _put(sd, "outc.conv", _conv(p["outc"]))
+    return sd
+
+
+def _unused(key):
+    """Reference parameters with no counterpart in the port: the SFF IFNet's
+    super-resolution branch (``srconv*``) and the SP IFNet's eight unused
+    kernel heads (``upconv51_15..18``, ``upconv51_25..28``)."""
+    if key.startswith("srconv"):
+        return True
+    head = key.split(".")[0]
+    return (head.startswith("upconv51_") and len(head) == 11
+            and head[-2] in "12" and head[-1] in "5678")
+
+
 def load_reference(module, path_or_dict):
     """Load a reference checkpoint (path or loaded payload) into a port
     module, strictly.
 
     A ``model_weights`` payload is unwrapped and ``module.`` prefixes are
-    stripped. The reference IFNet's unused super-resolution branch
-    (``srconv*``) has no counterpart here and is dropped; checkpoints that
-    predate BatchNorm's ``num_batches_tracked`` counter get it as 0.
+    stripped. Reference parameters that no port module has (``_unused``:
+    the IFNets' super-resolution branch and unused SP heads) are dropped;
+    checkpoints that predate BatchNorm's ``num_batches_tracked`` counter get
+    it as 0.
     """
     if isinstance(path_or_dict, dict):
         payload = path_or_dict
@@ -134,7 +180,7 @@ def load_reference(module, path_or_dict):
         payload = torch.load(path_or_dict, map_location="cpu", weights_only=True)
     sd = {k.removeprefix("module."): v
           for k, v in payload.get("model_weights", payload).items()
-          if not k.removeprefix("module.").startswith("srconv")}
+          if not _unused(k.removeprefix("module."))}
     for k, v in module.state_dict().items():
         if k.endswith("num_batches_tracked") and k not in sd:
             sd[k] = torch.zeros_like(v)

@@ -97,18 +97,20 @@ __device__ __forceinline__ void zero(float (&acc)[MB][NB][4]) {
 }
 
 // Weights of `taps` taps from device memory, laid out [tap][cin][cout]
-// (HWIO for a 3x3 conv), into shared [tap][COUT_P][KS], zero-padded.
+// (HWIO for a 3x3 conv), into shared [tap][COUT_P][KS], zero-padded: the
+// COUT_P output channels from co0 on (a block that owns one slice of the
+// output channels loads only that slice).
 template <int CIN_P, int COUT_P>
 __device__ void load_weights(bf16* w_s, const bf16* __restrict__ w, int taps,
-                             int cin, int cout) {
+                             int cin, int cout, int co0 = 0) {
   constexpr int KS = CIN_P + 8;
   const bf16 zero_v = __float2bfloat16(0.f);
   for (int i = threadIdx.x; i < taps * COUT_P * CIN_P; i += blockDim.x) {
     const int k = i % CIN_P;
     const int rest = i / CIN_P;
-    const int co = rest % COUT_P;
+    const int co = co0 + rest % COUT_P;
     const int tap = rest / COUT_P;
-    w_s[(tap * COUT_P + co) * KS + k] =
+    w_s[(tap * COUT_P + co - co0) * KS + k] =
         (k < cin && co < cout) ? w[(static_cast<size_t>(tap) * cin + k) * cout + co]
                                : zero_v;
   }

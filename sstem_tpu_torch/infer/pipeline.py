@@ -1,6 +1,7 @@
-"""The SFF restore pipeline (counterpart of ``sstem_tpu/infer/pipeline.py``:
-``SFFPipeline``, on its ``packed_conv=False`` path and, with
-``packed_conv=True``, on its fused-conv serving path).
+"""The SFF and SP restore pipelines (counterpart of
+``sstem_tpu/infer/pipeline.py``: ``SFFPipeline`` and ``SPPipeline``, on their
+``packed_conv=False`` paths and, with ``packed_conv=True``, on their
+fused-conv serving paths). ``SPPipeline`` is described at its class.
 
 For each damaged section k of a (Z, H, W) uint8 stack:
 
@@ -35,8 +36,10 @@ from sstem_tpu_torch.kernels import serving_warp
 from sstem_tpu_torch.models.layers import set_compute_dtype
 from sstem_tpu_torch.models.serving import (
     fusionnet_serve,
+    fusionnet_sp_serve,
     ifnet_serve,
     unet_sff_serve,
+    unet_sp_serve,
 )
 
 
@@ -293,3 +296,112 @@ class SFFPipeline:
                               "stitch": imgs[j, ..., 3],
                               "flow": flow[j]}
         return results
+
+
+class SPPipeline:
+    """SP quartet restoration (``sp_scripts_test/test_fusion.py:17-141``):
+    sections 2 and 3 of a quartet are interpolated from sections 1 and 4
+    (the two-frame IFNet, four sepconvs), each degraded section is denoised
+    (UNetSP), and each interp and denoised pair is blended by its damage mask
+    and fused (FusionNetSP):
+
+        pred = fusion(vfi * (1 - m), denoise(deg) * m),   m = mask / 255
+
+    Args:
+      vfi_model: ``IFNet(kernel_size, n_frames=2)``.
+      denoise_model, fusion_model: ``UNetSP`` and ``FusionNetSP`` (needed by
+        ``restore`` only).
+      device: where the models run.
+      dtype: compute dtype, ``config.PARITY_DTYPE`` (float32) or
+        ``config.SERVING_DTYPE`` (bfloat16). The IFNet's conv weights are
+        cast to it in place, and without ``packed_conv`` the U-Nets' too.
+      packed_conv: run the U-Nets as the fused-conv serving forwards of
+        ``models/serving.py`` (bf16 only; they read float32 weights and
+        keep bf16 copies of their own). The interp runs the IFNet module
+        in ``dtype`` on both paths, as the JAX pipeline runs
+        ``IFNet.apply``. False by default (the JAX package's automatic
+        choice by backend is not carried over).
+
+    Every public method runs under ``torch.inference_mode()`` on ``device``
+    and returns device tensors.
+    """
+
+    def __init__(self, vfi_model, denoise_model=None, fusion_model=None,
+                 device="cuda", dtype=PARITY_DTYPE, packed_conv=False):
+        if dtype not in (PARITY_DTYPE, SERVING_DTYPE):
+            raise ValueError(f"dtype must be {PARITY_DTYPE} or "
+                             f"{SERVING_DTYPE}; got {dtype}")
+        if packed_conv and dtype != SERVING_DTYPE:
+            raise ValueError(
+                f"packed_conv=True serves bfloat16 only (the JAX package has "
+                f"no float32 packed path); got dtype={dtype}")
+        if vfi_model.n_frames != 2:
+            raise ValueError("SPPipeline interpolates two sections: it needs "
+                             "IFNet(kernel_size, n_frames=2)")
+        self.device = torch.device(device)
+        self.packed_conv = packed_conv
+        self.vfi_model = set_compute_dtype(vfi_model.to(self.device).eval(),
+                                           dtype)
+        nets = []
+        for m in (denoise_model, fusion_model):
+            if m is not None:
+                m = m.to(self.device).eval()
+                if not packed_conv:
+                    m = set_compute_dtype(m, dtype)
+            nets.append(m)
+        self.denoise_model, self.fusion_model = nets
+
+    def _to01(self, img):
+        """(N, H, W) images on the 0..255 scale -> (N, H, W, 1) float32 in
+        0..1 on the device."""
+        return (torch.as_tensor(img, device=self.device).float()
+                / 255.0)[..., None]
+
+    @torch.inference_mode()
+    def interp(self, img1, img4):
+        """Sections 2 and 3 predicted from gray sections 1 and 4 (N, H, W)
+        on the 0..255 scale: (N, H, W, 2) float32 in 0..1."""
+        a, b = self._to01(img1), self._to01(img4)
+        x = torch.cat([a, a, a, b, b, b], -1)
+        x, (h, w) = pad_to_multiple(x, 32)
+        pred = self.vfi_model(x.permute(0, 3, 1, 2))[:, :, :h, :w]
+        return pred.permute(0, 2, 3, 1).float().clamp(0.0, 1.0)
+
+    def _denoise(self, x):
+        if self.packed_conv:
+            return unet_sp_serve(self.denoise_model, x)
+        y = self.denoise_model(x.permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1).float()
+
+    def _fuse(self, a, b):
+        if self.packed_conv:
+            return fusionnet_sp_serve(self.fusion_model, a, b)
+        y = self.fusion_model(a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1).float()
+
+    @torch.inference_mode()
+    def restore(self, img1, img4, deg2, deg3, mask2, mask3):
+        """The quartet restore. All arguments gray (N, H, W) on the 0..255
+        scale (masks 0 where the section is intact, 255 where damaged).
+
+        Returns a dict of (N, H, W) float32 device tensors in 0..1:
+        'pred1', 'pred2' (the fused sections 2 and 3), 'vfi1', 'vfi2' (the
+        interp) and 'denoise1', 'denoise2'.
+        """
+        if self.denoise_model is None or self.fusion_model is None:
+            raise ValueError("restore needs denoise_model and fusion_model")
+        vfi = self.interp(img1, img4)
+        vfi_pad, (h, w) = pad_to_multiple(vfi, 32)
+        d2, d3, m2, m3 = (pad_to_multiple(self._to01(t), 32)[0]
+                          for t in (deg2, deg3, mask2, mask3))
+        den2 = self._denoise(d2)
+        den3 = self._denoise(d3)
+        p1 = self._fuse(vfi_pad[..., 0:1] * (1 - m2), den2 * m2)
+        p2 = self._fuse(vfi_pad[..., 1:2] * (1 - m3), den3 * m3)
+
+        def crop(t):
+            return t[:, :h, :w, 0].clamp(0.0, 1.0)
+
+        return {"pred1": crop(p1), "pred2": crop(p2),
+                "vfi1": vfi[..., 0], "vfi2": vfi[..., 1],
+                "denoise1": crop(den2), "denoise2": crop(den3)}

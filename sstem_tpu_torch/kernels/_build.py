@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (pointers and the stream as void*)
 _ENTRY_POINTS = {
     # image, vertical, horizontal, out, n, c, h, w, k,
@@ -52,6 +53,12 @@ _ENTRY_POINTS = {
     "sstem_pool2x": [_P, _P, _I, _I, _I, _I, _I, _P],
     # x, w, bias, out, n, hi, wi, cx, cin, k, stream
     "sstem_head_tail": [_P] * 4 + [_I] * 6 + [_P],
+    # x, out, total bytes, slab bytes, stream
+    "sstem_probe_copy": [_P, _P, _L, _L, _P],
+    # src, idx, out, rows, cols, axis, stream
+    "sstem_probe_gather": [_P, _P, _P, _I, _I, _I, _P],
+    # src, shift, out, rows, cols, stream
+    "sstem_probe_roll": [_P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

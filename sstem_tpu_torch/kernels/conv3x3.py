@@ -13,9 +13,10 @@ FusionNet residual block), always before the activation.
 
 The JAX kernel's pixel packing (``pack_nhwc``, ``build_packed_weights``, the
 zero-quad borders) fills the TPU's 128 lanes and is not ported: the port
-takes plain NHWC tensors and HWIO weights with any channel count up to 64.
-CUDA tensors go through ``csrc/conv3x3_fused.cu``; CPU tensors through
-``conv3x3_fused_plain``.
+takes plain NHWC tensors and HWIO weights with any channel count up to 128
+(the JAX kernel's C in {8, ..., 128}; its 128 -> 64 convs pad the output to
+128 and slice, the port's write 64 channels). CUDA tensors go through
+``csrc/conv3x3_fused.cu``; CPU tensors through ``conv3x3_fused_plain``.
 """
 
 import torch
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 from sstem_tpu_torch.kernels import _build
 
 ACTS = {None: 0, "relu": 1, "leaky": 2}
-MAX_CHANNELS = 64
+MAX_CHANNELS = 128
 
 
 def fold_affine(cout, bias=None, bn_scale=None, bn_shift=None):
@@ -98,7 +99,7 @@ def conv3x3_fused(x, w, scale, shift, act=None, residual=None,
     Args:
       x: (N, H, W, Cin) bfloat16.
       w: (3, 3, Cin, Cout) bfloat16 (HWIO, the JAX kernel's layout), Cin and
-        Cout at most 64.
+        Cout at most 128.
       scale, shift: (Cout,) float32 (``fold_affine``).
       act: None, 'relu' or 'leaky'.
       residual: optional (N, H, W, Cout) bfloat16.

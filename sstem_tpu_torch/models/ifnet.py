@@ -1,21 +1,29 @@
-"""IFNet, the kernel-prediction interpolation net, SFF variant (counterpart of
-``sstem_tpu/models/ifnet.py``: 1 frame, ``assume_gray``, eval).
+"""IFNet, the kernel-prediction interpolation net (counterpart of
+``sstem_tpu/models/ifnet.py``: ``n_frames`` 1 (SFF) or 2 (SP),
+``assume_gray``).
 
 Input (N, 6, H, W): two gray neighbour sections, each replicated x3. A
 5-level conv encoder 32..512 with 2x2 average pooling, a decoder with
 align-corners 2x upsampling and additive skips, and four kernel heads, each
 ending in a 2x align-corners upsample and ``conv3`` that emit K tap maps in
-planar (N, K, H, W) layout. Two sepconvs apply them to the replication-padded
-gray frames:
+planar (N, K, H, W) layout. For each output frame two sepconvs apply them to
+the replication-padded gray frames:
 
     y = sepconv(pad(i2), k2v, k2h) + sepconv(pad(i1), k1v, k1h)
 
 The frames are gray, so the sepconv runs on one channel (the reference runs
 three identical ones and takes their mean). Module names are the reference's
-(``conv32.0``, ``upsamp512.1``, ``upconv51_1.7``, ...); heads 1..4 are
-k2h, k2v, k1h, k1v. Init: orthogonal, gain sqrt(2).
+(``conv32.0``, ``upsamp512.1``, ``upconv51_1.7``, ...). The SFF net
+(``n_frames=1``, model_interp.py) has four heads, ``upconv51_1..4`` = k2h,
+k2v, k1h, k1v. The SP net (``n_frames=2``, sp_scripts_train/networks.py)
+has four per frame in another order: ``upconv51_11..14`` = k1h, k1v, k2h,
+k2v of section 2, ``upconv51_21..24`` the same of section 3 (the JAX
+importer's ``load_torch_ifnet(n_frames=2)``); the reference's eight unused
+heads ``upconv51_15..18`` and ``_25..28`` are not built. Init: orthogonal,
+gain sqrt(2).
 """
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -43,10 +51,21 @@ def _kernel_head(k):
                          conv3x3(64, k), nn.ReLU(), Upsample2x(), conv3x3(k, k))
 
 
+# head names per output frame, in (k2h, k2v, k1h, k1v) order
+HEADS = {
+    1: (("upconv51_1", "upconv51_2", "upconv51_3", "upconv51_4"),),
+    2: tuple((f"upconv51_{f}3", f"upconv51_{f}4", f"upconv51_{f}1",
+              f"upconv51_{f}2") for f in (1, 2)),
+}
+
+
 class IFNet(nn.Module):
-    def __init__(self, kernel_size=51, generator=None):
+    def __init__(self, kernel_size=51, n_frames=1, generator=None):
         super().__init__()
+        if n_frames not in HEADS:
+            raise ValueError(f"IFNet: n_frames must be 1 or 2, got {n_frames}")
         self.kernel_size = kernel_size
+        self.n_frames = n_frames
         self.conv32 = _conv_module(6, 32)
         self.conv64 = _conv_module(32, 64)
         self.conv128 = _conv_module(64, 128)
@@ -60,14 +79,12 @@ class IFNet(nn.Module):
         self.upsamp128 = _upsample_module(128, 128)
         self.upconv64 = _conv_module(128, 64)
         self.upsamp64 = _upsample_module(64, 64)
-        self.upconv51_1 = _kernel_head(kernel_size)
-        self.upconv51_2 = _kernel_head(kernel_size)
-        self.upconv51_3 = _kernel_head(kernel_size)
-        self.upconv51_4 = _kernel_head(kernel_size)
+        for name in sorted(n for frame in HEADS[n_frames] for n in frame):
+            setattr(self, name, _kernel_head(kernel_size))
         materialize(self, generator, orthogonal_relu_)
 
     def forward(self, x):
-        """(N, 6, H, W), H and W multiples of 32 -> (N, 1, H, W)."""
+        """(N, 6, H, W), H and W multiples of 32 -> (N, n_frames, H, W)."""
         i1 = x[:, 0:1]
         i2 = x[:, 3:4]
 
@@ -88,8 +105,9 @@ class IFNet(nn.Module):
         pad = self.kernel_size // 2
         p1 = replication_pad_2d(i1, pad).to(cdt)
         p2 = replication_pad_2d(i2, pad).to(cdt)
-        k2h = self.upconv51_1(x)
-        k2v = self.upconv51_2(x)
-        k1h = self.upconv51_3(x)
-        k1v = self.upconv51_4(x)
-        return sepconv_planar(p2, k2v, k2h) + sepconv_planar(p1, k1v, k1h)
+        outs = []
+        for frame in HEADS[self.n_frames]:
+            k2h, k2v, k1h, k1v = (getattr(self, name)(x) for name in frame)
+            outs.append(sepconv_planar(p2, k2v, k2h)
+                        + sepconv_planar(p1, k1v, k1h))
+        return outs[0] if len(outs) == 1 else torch.cat(outs, 1)

@@ -15,8 +15,10 @@ which draws every initial value from an explicit ``torch.Generator``:
   * ``normal_002_`` — normal(0, 0.02) (FusionNet), with BN weights
     normal(1, 0.02);
 and conv biases uniform(+-1/sqrt(fan_in)) in every case, as PyTorch does.
+Inside ``skip_init`` nothing is drawn (the values are loaded next).
 """
 
+import contextlib
 import math
 
 import torch
@@ -62,8 +64,24 @@ def normal_002_(w, g):
     nn.init.normal_(w, 0.0, 0.02, generator=g)
 
 
+_SKIP_INIT = []
+
+
+@contextlib.contextmanager
+def skip_init():
+    """Modules built inside allocate their parameters and draw no initial
+    values: for a module whose every value is loaded next (a checkpoint
+    loaded strictly), where orthogonal init would be wasted seconds."""
+    _SKIP_INIT.append(True)
+    try:
+        yield
+    finally:
+        _SKIP_INIT.pop()
+
+
 def materialize(module, generator, conv_weight_init, bn_weight_std=0.0):
-    """Allocate ``module``'s meta parameters on the CPU and initialise them.
+    """Allocate ``module``'s meta parameters on the CPU and initialise them
+    (unless inside ``skip_init``).
 
     Conv and ConvTranspose weights take ``conv_weight_init``; biases take
     PyTorch's default bound. BatchNorm weights are 1, or normal(1, std) when
@@ -71,6 +89,8 @@ def materialize(module, generator, conv_weight_init, bn_weight_std=0.0):
     """
     g = generator if generator is not None else torch.Generator()
     module.to_empty(device="cpu")
+    if _SKIP_INIT:
+        return module
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):

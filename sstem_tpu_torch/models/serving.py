@@ -1,10 +1,12 @@
-"""Fused-conv serving forwards (eval mode, bf16) of the three SFF nets
-(counterpart of ``sstem_tpu/models/serving.py``: ``fusionnet_serve``,
-``unet_sff_serve``, ``ifnet_serve`` with ``n_frames=1``,
-``fold_gray_pair_conv`` and ``_with_folded_first_conv``).
+"""Fused-conv serving forwards (eval mode, bf16) of the three SFF nets and
+the two SP U-Nets (counterpart of ``sstem_tpu/models/serving.py``:
+``fusionnet_serve``, ``unet_sff_serve``, ``ifnet_serve`` with
+``n_frames=1``, ``unet_sp_backbone_serve``, ``unet_sp_serve``,
+``fusionnet_sp_serve``, ``fold_gray_pair_conv`` and
+``_with_folded_first_conv``).
 
 Each forward takes the port's eval module (``FusionNet``, ``UNetSFF``,
-``IFNet``) and reads its weights and BatchNorm buffers; activations are NHWC
+``IFNet``, ``UNetSP``, ``FusionNetSP``) and reads its weights and BatchNorm buffers; activations are NHWC
 bf16 throughout, as the JAX serving forwards' are. The split between kernels
 and library ops is the JAX package's:
 
@@ -380,6 +382,94 @@ def unet_sff_serve(model, x):
     c1 = deconv2x_fused(h, *p["decode2_deconv"], "relu")
     f = _split_concat_conv(c1, e1, p["final_split"])
     return conv3x3_fused(f, *p["final_conv1"], "relu")
+
+
+# ---------------------------------------------------------------------------
+# SP U-Nets (milesial backbone: UNetSP denoiser, additive FusionNetSP)
+# ---------------------------------------------------------------------------
+
+def _double_conv_parts(dc):
+    """The two (conv, bn) pairs of a DoubleConv."""
+    seq = dc.double_conv
+    return [(seq[0], seq[1]), (seq[3], seq[4])]
+
+
+def _unet_sp_args(model):
+    kernel = {"inc": model.inc, "down1": model.down1.maxpool_conv[1]}
+    xla = {"down2": model.down2.maxpool_conv[1],
+           "down3": model.down3.maxpool_conv[1],
+           "down4": model.down4.maxpool_conv[1],
+           "up1": model.up1.conv, "up2": model.up2.conv}
+    p = {name: [_kconv(c, bn) for c, bn in _double_conv_parts(dc)]
+         for name, dc in kernel.items()}
+    for name, dc in xla.items():
+        p[name] = [(_xconv(c), _bn_affine(bn))
+                   for c, bn in _double_conv_parts(dc)]
+    for name in ("up3", "up4"):
+        (c0, bn0), (c1, bn1) = _double_conv_parts(getattr(model, name).conv)
+        p[name] = (_split_conv(c0, bn0, c0.in_channels // 2), _kconv(c1, bn1))
+    # the 1x1 outc as a centre-tap 3x3 conv
+    outc = copy.copy(model.outc.conv)
+    outc._parameters = dict(outc._parameters)
+    outc.weight = torch.nn.Parameter(F.pad(outc.weight, (1, 1, 1, 1)),
+                                     requires_grad=False)
+    p["outc"] = _kconv(outc)
+    return p
+
+
+def unet_sp_backbone_serve(model, x):
+    """Eval forward of the milesial U-Net in bf16: levels 1 (64 channels at
+    full resolution) and 2 (128 at half) on the conv kernel, with the first
+    max pool on the pool kernel and the split concat convs of up3 and up4
+    as two kernel convs each; down2..down4, up1 and up2 on cuDNN; the
+    bilinear upsamplings on bf16 inputs, as the JAX forward's are.
+
+    Args:
+      model: the port's ``UNetSP`` or ``FusionNetSP`` (its weights).
+      x: (N, H, W, Cin) input, H and W multiples of 16.
+
+    Returns:
+      (N, H, W, n_classes) float32.
+    """
+    p = _prepared(model, "unet_sp", _unet_sp_args)
+    n, h, w, _ = x.shape
+    x = x.to(_BF).contiguous()
+
+    def double_conv(t, convs):
+        for args in convs:
+            t = conv3x3_fused(t, *args, "relu")
+        return t
+
+    def dc_xla(t, parts):
+        for conv, bn in parts:
+            t = torch.relu(_bn_eval(_conv_eval(t, conv), bn))
+        return t
+
+    def split_dc(a, b, parts):
+        split, conv1 = parts
+        return conv3x3_fused(_split_concat_conv(a, b, split), *conv1, "relu")
+
+    x1 = double_conv(x, p["inc"])
+    x2 = double_conv(pool2x(x1, "max"), p["down1"])
+    x3 = dc_xla(_maxpool(x2), p["down2"])
+    x4 = dc_xla(_maxpool(x3), p["down3"])
+    x5 = dc_xla(_maxpool(x4), p["down4"])
+    u = dc_xla(torch.cat([x4, _upsample(x5, x4.shape[1:3])], -1), p["up1"])
+    u = dc_xla(torch.cat([x3, _upsample(u, x3.shape[1:3])], -1), p["up2"])
+    u = split_dc(x2, _upsample(u, (h // 2, w // 2)).contiguous(), p["up3"])
+    u = split_dc(x1, _upsample(u, (h, w)).contiguous(), p["up4"])
+    return conv3x3_fused(u, *p["outc"], None).float()
+
+
+def unet_sp_serve(model, x):
+    """UNetSP (denoiser) serving forward: ``unet_sp_backbone_serve``."""
+    return unet_sp_backbone_serve(model, x)
+
+
+def fusionnet_sp_serve(model, x1, x2):
+    """FusionNetSP serving forward: the inputs added first (in float32, as
+    the JAX forward adds them), then ``unet_sp_backbone_serve``."""
+    return unet_sp_backbone_serve(model, x1.float() + x2.float())
 
 
 # ---------------------------------------------------------------------------

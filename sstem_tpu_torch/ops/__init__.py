@@ -1,7 +1,7 @@
 from sstem_tpu_torch.ops.pad import replication_pad_2d
 from sstem_tpu_torch.ops.resize import upsample_bilinear_align_corners
 from sstem_tpu_torch.ops.warp import spatial_transform
-from sstem_tpu_torch.ops.flow import gen_line, gen_flow_np
+from sstem_tpu_torch.ops.flow import fold_flows, gen_flow_np, gen_line
 
 __all__ = [
     "replication_pad_2d",
@@ -9,4 +9,5 @@ __all__ = [
     "spatial_transform",
     "gen_line",
     "gen_flow_np",
+    "fold_flows",
 ]

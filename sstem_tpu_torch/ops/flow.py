@@ -1,5 +1,5 @@
 """Fold-line flow synthesis in numpy (counterpart of ``sstem_tpu/ops/flow.py``:
-``gen_line`` and ``gen_flow_np``).
+``gen_line`` and ``gen_flow_np``; ``fold_flows`` makes a batch of them).
 
 A fold line ``y = k*x + b``, the signed distance ``d`` to it, and the
 piecewise-linear displacement profile of the reference flow synthesizer
@@ -67,3 +67,16 @@ def gen_flow_np(height, width, k, b, line_width=5, fold_width=10, dis_k=0.1):
         flow2[..., 0] = -dis2 * cos_p
         flow2[..., 1] = dis2 * sin_p
     return flow, flow2, mask.astype(np.float32)
+
+
+def fold_flows(n, h, w, seed):
+    """(n, h, w, 2) float32 ground-truth unfolding flows of random fold
+    lines crossing the image from its left to its right edge (line width 8,
+    fold width 40), made from ``seed``: realistic flows for the warp's
+    checks and timings."""
+    rng = np.random.default_rng(seed)
+    flows = []
+    for _ in range(n):
+        k, b = gen_line((rng.uniform(0, h), 0.0), (rng.uniform(0, h), w - 1.0))
+        flows.append(gen_flow_np(h, w, k, b, line_width=8, fold_width=40)[1])
+    return np.stack(flows).astype(np.float32)

@@ -1,7 +1,7 @@
 """Shared weights for the port's parity tests (tests/test_torch_*.py).
 
 ``flax .init`` of the three SFF models costs about 35 s of XLA compilation on
-a CPU, so the tests take the variable tree from ``jax.eval_shape`` of
+a CPU (the SP models likewise), so the tests take the variable tree from ``jax.eval_shape`` of
 ``.init`` (a trace, no compile; about a second, so each tree is traced once
 per process) and fill it from a numpy seed. The same numpy arrays then go to
 the flax model and, through ``sstem_tpu_torch.compat.weights``, to the port.
@@ -17,13 +17,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sstem_tpu.models import FusionNet, IFNet, UNetSFF
+from sstem_tpu.models import FusionNet, IFNet, UNetSFF, UNetSP
 from sstem_tpu_torch import models as port_models
 from sstem_tpu_torch.compat import (
     fusionnet_state_dict_from_jax,
     ifnet_state_dict_from_jax,
     unet_sff_state_dict_from_jax,
+    unet_sp_state_dict_from_jax,
 )
+from sstem_tpu_torch.models.layers import skip_init
 
 _TREES = {}  # the traced shape tree by model, input shape and init kwargs
 _PORT = {}  # one constructed port module by class name and arguments
@@ -65,13 +67,13 @@ def numpy_variables(model, seed, shape=(1, 64, 64, 6), **init_kw):
     return jax.tree_util.tree_map_with_path(fill, tree)
 
 
-def ifnet_variables(kernel_size, seed=0):
-    """IFNet(kernel_size) variables whose kernel heads' last conv is scaled
-    so each frame's taps sum to about 1/sqrt(2) per map, as a trained KPN's
-    do: the interp (the sum of the two frames' sepconvs) then stays mostly
-    inside 0..1 instead of saturating."""
-    iv = numpy_variables(IFNet(kernel_size, 1), seed)
-    for head in ("head1h", "head1v", "head2h", "head2v"):
+def ifnet_variables(kernel_size, seed=0, n_frames=1):
+    """IFNet(kernel_size, n_frames) variables whose kernel heads' last conv
+    is scaled so each frame's taps sum to about 1/sqrt(2) per map, as a
+    trained KPN's do: the interp (the sum of the two frames' sepconvs) then
+    stays mostly inside 0..1 instead of saturating."""
+    iv = numpy_variables(IFNet(kernel_size, n_frames), seed)
+    for head in [k for k in iv["params"] if k.startswith("head")]:
         conv3 = iv["params"][head]["conv3"]["Conv_0"]
         conv3["kernel"] = conv3["kernel"] * np.float32(0.02)
         conv3["bias"] = conv3["bias"] * np.float32(0.2) + np.float32(
@@ -87,10 +89,39 @@ def sff_variables(kernel_size, seed=0):
             numpy_variables(UNetSFF(1), seed + 2, train=True))
 
 
+def sp_variables(kernel_size, seed=0):
+    """(vfi, denoise, fusion) variables for IFNet(kernel_size, n_frames=2)
+    (see ``ifnet_variables``), UNetSP and FusionNetSP. The two U-Nets have
+    the same variable tree, so FusionNetSP's is UNetSP's, filled from its
+    own seed."""
+    tree = UNetSP(1)
+    return (ifnet_variables(kernel_size, seed, n_frames=2),
+            numpy_variables(tree, seed + 1, (1, 64, 64, 1), train=True),
+            numpy_variables(tree, seed + 2, (1, 64, 64, 1), train=True))
+
+
+def port_sp_models(kernel_size, variables):
+    """The port's (IFNet(n_frames=2), UNetSP, FusionNetSP) in eval mode,
+    strictly loaded with the flax ``variables`` of ``sp_variables``."""
+    iv, dv, fv = variables
+    out = []
+    for name, args, sd in (
+            ("IFNet", (kernel_size, 2), ifnet_state_dict_from_jax(iv, 2)),
+            ("UNetSP", (), unet_sp_state_dict_from_jax(dv)),
+            ("FusionNetSP", (), unet_sp_state_dict_from_jax(fv))):
+        with skip_init():  # every value is loaded next
+            model = port_module(name, *args)
+        model.load_state_dict(sd, strict=True)
+        out.append(model.eval())
+    return tuple(out)
+
+
 def port_module(name, *args):
-    """A fresh port module (``IFNet``, ``FusionNet`` or ``UNetSFF`` with
-    ``args``), copied from one constructed per process: its initial weights
-    are those of a default generator, for the caller to overwrite."""
+    """A fresh port module (``IFNet``, ``FusionNet``, ``UNetSFF``, ``UNetSP``
+    or ``FusionNetSP`` with ``args``), copied from one constructed per
+    process: its initial weights are those of a default generator (none for
+    the SP models, which ``port_sp_models`` builds under ``skip_init``), for
+    the caller to overwrite."""
     key = (name, args)
     if key not in _PORT:
         _PORT[key] = getattr(port_models, name)(*args)

@@ -18,16 +18,20 @@ on the same bf16 values. Bounds:
 The serving forwards are held to the port's own eval modules in bf16 (which
 tests/test_torch_models.py holds to flax) on the numpy weights of
 tests/_torch_port.py: NRMSE below 0.05 of the output's std, the bound
-tests/test_serving.py sets between the JAX serving forwards and flax.
+tests/test_serving.py sets between the JAX serving forwards and flax. The
+SP U-Nets' serving forwards are held to the JAX ones (kernels in interpret
+mode) by the same bound.
 """
 
 import copy
+import functools
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+import jax
 import jax.numpy as jnp
 
 from sstem_tpu.kernels.conv3x3 import (
@@ -39,6 +43,9 @@ from sstem_tpu.kernels.conv3x3 import (
 from sstem_tpu.kernels.deconv import build_packed_deconv_weights, deconv2x_packed
 from sstem_tpu.kernels.head_tail import dephase_transpose, head_tail_fused
 from sstem_tpu.kernels.pool import pool2x_packed
+from sstem_tpu.models import UNetSP as JaxUNetSP
+from sstem_tpu.models.serving import unet_sp_serve as jax_unet_sp_serve
+from sstem_tpu_torch.compat import unet_sp_state_dict_from_jax
 from sstem_tpu_torch.config import PARITY_DTYPE
 from sstem_tpu_torch.infer.pipeline import SFFPipeline
 from sstem_tpu_torch.kernels import (
@@ -48,15 +55,22 @@ from sstem_tpu_torch.kernels import (
     head_tail,
     pool2x,
 )
-from sstem_tpu_torch.models.layers import set_compute_dtype
+from sstem_tpu_torch.models.layers import set_compute_dtype, skip_init
 from sstem_tpu_torch.models.serving import (
     fold_gray_pair_conv,
     fusionnet_serve,
+    fusionnet_sp_serve,
     ifnet_serve,
     unet_sff_serve,
+    unet_sp_serve,
 )
 
-from _torch_port import port_sff_models, sff_variables
+from _torch_port import (
+    numpy_variables,
+    port_module,
+    port_sff_models,
+    sff_variables,
+)
 
 torch.set_num_threads(1)
 
@@ -237,9 +251,9 @@ def test_refusals(modules):
         conv3x3_fused(x.float(), w, one, one)
     with pytest.raises(ValueError, match="3,3,Cin,Cout"):
         conv3x3_fused(x, w[:, :, :16], one, one)
-    with pytest.raises(ValueError, match="at most 64"):
-        conv3x3_fused(torch.zeros((1, 8, 8, 96), dtype=BF),
-                      torch.zeros((3, 3, 96, 32), dtype=BF), one, one)
+    with pytest.raises(ValueError, match="at most 128"):
+        conv3x3_fused(torch.zeros((1, 8, 8, 160), dtype=BF),
+                      torch.zeros((3, 3, 160, 32), dtype=BF), one, one)
     with pytest.raises(ValueError, match="residual"):
         conv3x3_fused(x, w, one, one, residual=x[:, :8])
     with pytest.raises(ValueError, match="residual"):
@@ -254,3 +268,79 @@ def test_refusals(modules):
     # plain version
     with pytest.raises(ValueError, match="unsupported device"):
         pool2x(x.to("meta"))
+
+
+@pytest.mark.parametrize("cin,cout,act,res", [(64, 128, "relu", None),
+                                              (128, 128, "relu", "pre"),
+                                              (128, 128, "leaky", "post"),
+                                              (128, 64, "relu", None)])
+def test_conv3x3_128_channels_matches_pallas(cin, cout, act, res):
+    """The SP U-Net's half-resolution convs: 64 -> 128 (down1 conv0),
+    128 -> 128 plain and with the residual before the affine (the split
+    concat conv of up3) or after it, 128 -> 64 (up3 conv1). The JAX kernel
+    packs one pixel per 128 lanes; fewer real channels are zero-padded in
+    and out and sliced off, as its serving forward does
+    (``_packed_conv_args``)."""
+    rng = np.random.default_rng(cin + cout + len(str(res)))
+    n, h, w = 1, 16, 16
+    x, xt = _bf16(rng.normal(size=(n, h, w, cin)))
+    wk, wt = _bf16(rng.normal(size=(3, 3, cin, cout)) * (2.0 / (9 * cin)) ** 0.5)
+    scale, shift = _affine(rng, cout)
+    r, rt = _bf16(rng.normal(size=(n, h, w, cout))) if res else (None, None)
+    got = conv3x3_fused(xt, wt, torch.from_numpy(scale), torch.from_numpy(shift),
+                        act, rt, res == "pre")
+    pad_out = [(0, 0)] * 3 + [(0, 128 - cout)]
+    yq = conv3x3_packed(
+        pack_nhwc(jnp.asarray(x, jnp.bfloat16), pad_c=128 - cin),
+        build_packed_weights(jnp.asarray(
+            np.pad(wk, [(0, 0), (0, 0), (0, 128 - cin), (0, 128 - cout)]),
+            jnp.bfloat16), 1),
+        jnp.asarray(np.pad(scale, (0, 128 - cout), constant_values=1.0)),
+        jnp.asarray(np.pad(shift, (0, 128 - cout))), act, wq=w,
+        residual=None if res is None else pack_nhwc(
+            jnp.asarray(np.pad(r, pad_out), jnp.bfloat16)),
+        residual_pre_affine=res == "pre", interpret=True)
+    want = np.asarray(unpack_nhwc(yq, 128, w), np.float32)[..., :cout]
+    assert got.dtype == BF and got.shape == want.shape
+    _assert_bf16_close(got.float().numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def sp_modules():
+    """The SP U-Nets' JAX variables, port modules (float32, eval) and the
+    JAX serving forward, jitted once with its kernels in interpret mode."""
+    dv = numpy_variables(JaxUNetSP(1), 50, (1, 64, 64, 1), train=True)
+    fv = numpy_variables(JaxUNetSP(1), 51, (1, 64, 64, 1), train=True)
+    ports = []
+    for name, v in (("UNetSP", dv), ("FusionNetSP", fv)):
+        with skip_init():  # every value is loaded next
+            model = port_module(name)
+        model.load_state_dict(unet_sp_state_dict_from_jax(v), strict=True)
+        ports.append(model.eval())
+    serve = jax.jit(functools.partial(jax_unet_sp_serve, interpret=True))
+    return (dv, fv), ports, serve
+
+
+@pytest.mark.parametrize("name", ["unet_sp", "fusionnet_sp"])
+def test_sp_serve_matches_jax_serve(sp_modules, name):
+    """The port's SP serving forwards against the JAX ones with the Pallas
+    kernels in interpret mode, both bf16: NRMSE below 0.05 of the output's
+    std (tests/test_serving.py's bound between a packed forward and flax).
+    The JAX ``fusionnet_sp_serve`` is ``unet_sp_backbone_serve`` of the
+    inputs' sum (serving.py:649-652), so both cases run the one jitted JAX
+    forward (tracing it in interpret mode takes seconds)."""
+    (dv, fv), (denoise, fusion), serve = sp_modules
+    rng = np.random.default_rng(52)
+    a = rng.random((1, 32, 32, 1), dtype=np.float32)
+    b = rng.random((1, 32, 32, 1), dtype=np.float32)
+    with torch.inference_mode():
+        if name == "unet_sp":
+            got = unet_sp_serve(denoise, torch.from_numpy(a))
+            want = serve(dv, jnp.asarray(a))
+        else:
+            got = fusionnet_sp_serve(fusion, torch.from_numpy(a),
+                                     torch.from_numpy(b))
+            want = serve(fv, jnp.asarray(a) + jnp.asarray(b))
+    want = np.asarray(want)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _nrmse(got, want) < 0.05, _nrmse(got, want)
