@@ -6,8 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power limit
-  2. build: compiles sstem_tpu_torch/csrc/*.cu with nvcc (prints ptxas output
-     and the build seconds)
+  2. build: compiles sstem_tpu_torch/csrc/*.cu with nvcc (prints ptxas output,
+     the build seconds, and registers and spills of the wgmma kernels)
   3. sepconv kernel vs its plain PyTorch version on the same inputs
   4. warp kernel vs its plain PyTorch version on the same inputs
   5. pipeline on the card vs on the CPU (K=51, float32, TF32 off)
@@ -28,26 +28,30 @@ Phases, in order; any failure raises and the script exits non-zero:
  11. sepconv forward and backward kernels vs their plain versions at the
      training shape, and their times (CUDA events)
  12. conv3x3, pool, deconv and head-tail kernels vs their plain versions at
-     the packed_conv=True path's shapes (and an odd size for the edges)
+     every conv3x3 and deconv signature the packed_conv=True SFF path
+     launches at full width (SFF_CONV_CHECKS, DECONV_CHECKS) and at odd
+     sizes for the edges
  13. the packed_conv=True pipeline on the card vs on the CPU (K=51, bfloat16
      on both sides): NRMSE of each float output, uint8 level differences
  14. phase 6's workload in bfloat16 on the packed_conv=True path, with the
      head tails on cuDNN and on the head-tail kernel, beside the cuDNN path:
      launch counts per group asserted, ms/section, peak memory, and one call
      under torch.profiler each
- 15. the new kernels at their full-width shapes (CUDA events) beside their
-     plain versions, their bounds and one library call for the same work
+ 15. every conv3x3 and deconv shape of the SFF packed path at full width
+     (CUDA events): the design the kernel picks, the mma.sync design in the
+     same call, the plain version, the bound, the bare cuDNN call and (conv)
+     cuDNN with the epilogue as separate ops, and the launches per group;
+     then the pool and head-tail kernels beside theirs
  16. the probe kernels (tile copy, gather, dynamic roll; exact) and conv3x3
-     at up to 128 channels vs their plain versions, at the SP path's and the
-     probes' shapes and at odd sizes
+     at every SP path signature (SP_CONV_CHECKS) vs their plain versions
  17. SPPipeline.restore on the card vs on the CPU (K=51, two quartets of
      150 x 170): float32 with TF32 off, and the packed_conv=True path in
      bfloat16 on both sides
  18. full width SP: bench_sp.py's workload (6 quartets of 1250^2, batch 2,
      K=51, bfloat16) on the cuDNN and the packed path: launch counts per
      batch asserted, ms/quartet, MP/s, peak memory, one run under
-     torch.profiler each; then conv3x3 at the 128-channel shapes and the
-     SP pool beside their plain versions, library calls and bounds
+     torch.profiler each; then every conv3x3 shape of the SP packed path
+     timed as in phase 15, and the SP pool
  19. the probes through their entry points (probe_dma_conv, probe_gather
      --parity and --bench, micro_bench) with launch counts asserted, then
      each probe kernel at the JAX probes' shapes beside its plain version,
@@ -201,6 +205,110 @@ PATH_LAUNCHES = {
 }
 
 
+# The conv3x3_fused and deconv2x_fused signatures (n, h, w, cin, cout, act,
+# residual) that the packed paths launch at full width: the SFF restore on
+# its 1280^2 canvas, 4 sections a group; the SP restore at 1280^2, batch 2.
+# Phases 12 and 16 hold the kernel against its plain version at each, and
+# phases 15 and 18b time each (n, h, w, cin, cout, residual).
+# tests/test_torch_conv_shapes.py runs the packed serving forwards on the
+# CPU and fails when a path calls a channel signature missing here; phases
+# 14 and 18 fail likewise on the card.
+SFF_CONV_CHECKS = (
+    (4, 1280, 1280, 2, 32, "relu", None), (4, 1280, 1280, 2, 32, "leaky", None),
+    (4, 1280, 1280, 2, 6, "relu", None), (4, 1280, 1280, 6, 6, "relu", None),
+    (4, 1280, 1280, 6, 32, "relu", None),
+    (4, 1280, 1280, 32, 32, "relu", None), (4, 1280, 1280, 32, 32, "leaky", None),
+    (4, 1280, 1280, 32, 32, None, None), (4, 1280, 1280, 32, 32, None, "post"),
+    (4, 1280, 1280, 32, 32, "relu", "pre"),
+    (4, 1280, 1280, 32, 1, "relu", None), (4, 1280, 1280, 32, 2, None, None),
+    (4, 640, 640, 32, 32, "relu", None),
+    (4, 640, 640, 32, 64, "relu", None), (4, 640, 640, 32, 64, "leaky", None),
+    (4, 640, 640, 64, 64, "relu", None), (4, 640, 640, 64, 64, "leaky", None),
+    (4, 640, 640, 64, 64, None, None), (4, 640, 640, 64, 64, None, "post"),
+    (4, 640, 640, 64, 64, "relu", "pre"), (4, 640, 640, 64, K, "relu", None),
+)
+SP_CONV_CHECKS = (
+    (2, 1280, 1280, 1, 64, "relu", None), (2, 1280, 1280, 64, 64, "relu", None),
+    (2, 1280, 1280, 64, 64, None, None), (2, 1280, 1280, 64, 64, "relu", "pre"),
+    (2, 1280, 1280, 64, 1, None, None),
+    (2, 640, 640, 64, 128, "relu", None), (2, 640, 640, 128, 128, "relu", None),
+    (2, 640, 640, 128, 128, None, None), (2, 640, 640, 128, 128, "relu", "pre"),
+    (2, 640, 640, 128, 64, "relu", None),
+)
+DECONV_CHECKS = (
+    (4, 320, 320, 128, 64, "relu", None),
+    (4, 320, 320, 128, 64, "relu", "post_act_half"),
+    (4, 640, 640, 64, 32, "relu", None),
+    (4, 640, 640, 64, 32, "relu", "post_act_half"),
+)
+# odd sizes and channel counts for the edges of both designs
+ODD_CONV_CHECKS = (
+    (2, 37, 53, K, K, "leaky", "post"), (2, 37, 53, 32, 32, "relu", "pre"),
+    (2, 37, 53, 64, K, "relu", None), (2, 37, 53, 128, 128, "leaky", "post"),
+    (2, 37, 53, 100, 90, "relu", "pre"), (2, 37, 53, 48, 24, None, "post"),
+)
+ODD_DECONV_CHECKS = (
+    (2, 37, 53, K, 27, "relu", "post_act_half"),
+    (2, 37, 53, 128, 64, "leaky", "post_affine"),
+    (2, 37, 53, 64, 32, "relu", "post_act_half"),
+)
+
+
+def timing_rows(checks):
+    """The distinct (n, h, w, cin, cout, residual) of a check list."""
+    return list(dict.fromkeys((n, h, w, ci, co, r)
+                              for n, h, w, ci, co, _, r in checks))
+
+
+class KernelSignatures:
+    """Records (kernel, cin, cout, act, residual) of every conv3x3_fused and
+    deconv2x_fused call that models/serving.py makes while active, with
+    the spatial shape, as a Counter of (kernel, n, h, w, cin, cout, act,
+    residual). Residual: None, 'pre' or 'post' for conv3x3, the res_mode
+    for deconv2x."""
+
+    def __init__(self):
+        import collections
+
+        self.calls = collections.Counter()
+
+    def __enter__(self):
+        from sstem_tpu_torch.models import serving
+
+        self._serving = serving
+        self._orig = serving.conv3x3_fused, serving.deconv2x_fused
+        conv, deconv = self._orig
+
+        def conv_rec(x, w, scale, shift, act=None, residual=None,
+                     residual_pre_affine=False):
+            res = None if residual is None else (
+                "pre" if residual_pre_affine else "post")
+            self.calls[("conv3x3", *x.shape[:3], *w.shape[2:], act, res)] += 1
+            return conv(x, w, scale, shift, act, residual, residual_pre_affine)
+
+        def deconv_rec(x, w, scale, shift, act=None, residual=None,
+                       res_mode="post_affine"):
+            res = None if residual is None else res_mode
+            self.calls[("deconv2x", *x.shape[:3], *w.shape[2:], act, res)] += 1
+            return deconv(x, w, scale, shift, act, residual, res_mode)
+
+        serving.conv3x3_fused, serving.deconv2x_fused = conv_rec, deconv_rec
+        return self
+
+    def __exit__(self, *exc):
+        self._serving.conv3x3_fused, self._serving.deconv2x_fused = self._orig
+        return False
+
+    def channels(self):
+        """{(kernel, cin, cout, act, residual)} of the recorded calls."""
+        return {(k[0], *k[4:]) for k in self.calls}
+
+
+def check_channels(checks, kernel="conv3x3"):
+    """{(kernel, cin, cout, act, residual)} of a check list."""
+    return {(kernel, ci, co, a, r) for _, _, _, ci, co, a, r in checks}
+
+
 def counted_kernels():
     """Every kernel wrapper of the restore paths, by name."""
     from sstem_tpu_torch import kernels
@@ -216,8 +324,9 @@ def counted_kernels():
 def full_size_run(stack, ids, dtype, path="cudnn", chunk=4, profile=False,
                   **options):
     """The bench workload in one dtype on one path. Returns (the kernels'
-    launch counts during one restore_stack_scanned call, ms/section); with
-    ``profile``, one more call runs under torch.profiler."""
+    launch counts during one restore_stack_scanned call, ms/section, the
+    conv3x3 and deconv signatures of that call: KernelSignatures.calls);
+    with ``profile``, one more call runs under torch.profiler."""
     wrappers = counted_kernels()
     name = f"{str(dtype).removeprefix('torch.')} {path}"
     pipe = build_pipeline("cuda", dtype, **options)
@@ -236,8 +345,9 @@ def full_size_run(stack, ids, dtype, path="cudnn", chunk=4, profile=False,
     pipe.section = checked
     for fn in wrappers.values():
         fn.launches = 0
-    out = pipe.restore_stack_scanned(stack, ids, chunk=chunk)
-    torch.cuda.synchronize()
+    with KernelSignatures() as sig:
+        out = pipe.restore_stack_scanned(stack, ids, chunk=chunk)
+        torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in wrappers.items()}
     del pipe.section
     say(f"full {name} groups", groups)
@@ -245,6 +355,9 @@ def full_size_run(stack, ids, dtype, path="cudnn", chunk=4, profile=False,
         say(f"full {name} {k} launches (per group)", f"{n} ({n / groups})")
     want = {k: PATH_LAUNCHES[path].get(k, 0) * groups for k in wrappers}
     assert launches == want, (launches, want)
+    report_signatures(f"full {name}", sig, groups, "group",
+                      check_channels(SFF_CONV_CHECKS)
+                      | check_channels(DECONV_CHECKS, "deconv2x"))
     assert finite and all(finite), f"{name}: non-finite values before quantization"
     assert sorted(out) == sorted(ids)
     for i in ids:
@@ -276,7 +389,17 @@ def full_size_run(stack, ids, dtype, path="cudnn", chunk=4, profile=False,
                      1, len(ids), "section", f"restore_{path}_profile.json")
     del pipe
     torch.cuda.empty_cache()
-    return launches, ms
+    return launches, ms, sig.calls
+
+
+def report_signatures(label, sig, units, unit, checked):
+    """Prints each recorded kernel signature with its calls per unit and
+    fails when one is not in the check lists (``checked``)."""
+    for key, n in sorted(sig.calls.items(), key=str):
+        say(f"{label} {key[0]} {key[1]}x{key[2]}x{key[3]} {key[4]}->{key[5]} "
+            f"act={key[6]} res={key[7]} launches per {unit}", n / units)
+    missing = sig.channels() - checked
+    assert not missing, f"{label}: signatures missing from the checks: {missing}"
 
 
 def check_sepconv_bwd(n, c, h, w, k, maps_dtype, gen):
@@ -377,7 +500,8 @@ def train_step_card_vs_cpu(seed=SEED, hw=64, batch=2):
 # spectra meet in a complex pointwise product)
 KERNEL_KINDS = (
     ("sepconv", "sepconv kernels"),
-    ("conv3x3_fused", "conv3x3 kernel"), ("deconv2x_fused", "deconv kernel"),
+    ("conv3x3_fused", "conv3x3 kernel"), ("conv3x3_wgmma", "conv3x3 kernel"),
+    ("deconv2x_fused", "deconv kernel"), ("deconv2x_wgmma", "deconv kernel"),
     ("pool2x_kernel", "pool kernel"), ("head_tail", "head-tail kernel"),
     ("warp_bilinear", "warp kernel"),
     ("multi_tensor_apply", "optimizer"),
@@ -740,60 +864,139 @@ def compare_packed(gpu_sec, cpu_sec, gpu, cpu, ids):
     say("packed card-vs-cpu flow max_abs_err", flow)
 
 
-def time_new_kernels(gen):
-    """Each new kernel at its full-width shapes: kernel, plain version and
-    one library call for the same work, by CUDA events. Returns
-    {name: (ms, plain_ms, library_ms, bound_ms, bound_by)}."""
+def say_timing(name, t):
+    for key in ("design", "ms", "mma_ms", "plain_ms", "library_ms",
+                "cudnn_epilogue_ms", "launches_per_unit"):
+        if key in t:
+            say(f"{name} {key}", t[key])
+    say(f"{name} bound_ms ({t['bound_by']})", t["bound_ms"])
+
+
+def timing(ms, plain, library, bound):
+    """A timed kernel as the JSON line's keys (bound: (ms, 'bytes' or
+    'operations'))."""
+    return {"ms": ms, "plain_ms": plain, "library_ms": library,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def row_launches(calls, kernel, n, h, w, cin, cout, res, units):
+    """Launches per unit of one timed shape in a recorded path run."""
+    return sum(v for k, v in calls.items()
+               if k[0] == kernel and k[1:6] == (n, h, w, cin, cout)
+               and k[7] == res) / units
+
+
+def time_conv_rows(rows, gen, calls, units):
+    """conv3x3 at each (n, h, w, cin, cout, residual), by CUDA events: the
+    design the C entry point picks (ms), the mma.sync design (its _mma
+    entry point, mma_ms), the plain version, the bare cuDNN conv (bf16
+    channels-last, library_ms), cuDNN with the epilogue as separate ops,
+    the bound, and the launches per unit of the recorded path run."""
+    import torch.nn.functional as F
+
+    from sstem_tpu_torch.kernels import conv3x3 as c3
+
+    out = {}
+    for n, h, w, cin, cout, res in rows:
+        x, wt, scale, shift, r = conv_inputs(n, h, w, cin, cout, gen, res)
+        pre = res == "pre"
+        x_cl = x.permute(0, 3, 1, 2)
+        w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def entry(name):
+            return lambda: c3.launch_entry(name, x, wt, scale, shift, "relu",
+                                           r, pre)
+
+        def cudnn_epilogue():
+            y = F.conv2d(x_cl, w_cl, padding=1).float()
+            if r is not None and pre:
+                y = y + r.permute(0, 3, 1, 2).float()
+            y = y * scale[:, None, None] + shift[:, None, None]
+            if r is not None and not pre:
+                y = y + r.permute(0, 3, 1, 2).float()
+            return torch.relu(y).to(torch.bfloat16)
+
+        nbytes = 2 * (n * h * w * (cin + cout * (2 if r is not None else 1))
+                      + 9 * cin * cout) + 8 * cout
+        t = timing(
+            cuda_ms(entry("sstem_conv3x3_fused"), 10, 2),
+            cuda_ms(lambda: c3.conv3x3_fused_plain(x, wt, scale, shift,
+                                                   "relu", r, pre), 2),
+            cuda_ms(lambda: F.conv2d(x_cl, w_cl, padding=1), 10, 2),
+            roofline(nbytes, 2 * n * h * w * 9 * cin * cout, BF16_FLOP_PER_S))
+        t.update(design=c3.design(cin, cout),
+                 mma_ms=cuda_ms(entry(c3.ENTRY_POINTS["mma"]), 10, 2),
+                 cudnn_epilogue_ms=cuda_ms(cudnn_epilogue, 5, 1),
+                 launches_per_unit=row_launches(calls, "conv3x3", n, h, w, cin,
+                                                cout, res, units))
+        name = (f"conv3x3_fused[{cin}->{cout}@{n}x{h}x{w}"
+                f"{' res ' + res if res else ''}]")
+        say_timing(name, t)
+        out[name] = t
+        del x, wt, r, x_cl, w_cl
+    return out
+
+
+def time_deconv_rows(rows, gen, calls, units):
+    """deconv2x at each (n, h, w, cin, cout, residual) as time_conv_rows
+    times conv3x3; the library call is the bare F.conv_transpose2d."""
+    import torch.nn.functional as F
+
+    from sstem_tpu_torch.kernels import deconv as dc
+
+    out = {}
+    for n, h, w, cin, cout, res in rows:
+        x, wt, scale, shift, r = deconv_inputs(n, h, w, cin, cout, gen, res)
+        mode = res or "post_affine"
+        x_cl = x.permute(0, 3, 1, 2)
+        w_t = wt.permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def entry(name):
+            return lambda: dc.launch_entry(name, x, wt, scale, shift, "relu",
+                                           r, mode)
+
+        nbytes = 2 * (n * h * w * cin + 9 * cin * cout
+                      + 4 * n * h * w * cout * (2 if r is not None else 1)) + 8 * cout
+        t = timing(
+            cuda_ms(entry("sstem_deconv2x_fused"), 10, 2),
+            cuda_ms(lambda: dc.deconv2x_fused_plain(x, wt, scale, shift,
+                                                    "relu", r, mode), 2),
+            cuda_ms(lambda: F.conv_transpose2d(x_cl, w_t, stride=2, padding=1,
+                                               output_padding=1), 10, 2),
+            roofline(nbytes, 2 * n * h * w * cin * cout * 9, BF16_FLOP_PER_S))
+        t.update(design=dc.design(cin, cout),
+                 mma_ms=cuda_ms(entry(dc.ENTRY_POINTS["mma"]), 10, 2),
+                 launches_per_unit=row_launches(calls, "deconv2x", n, h, w,
+                                                cin, cout, res, units))
+        name = f"deconv2x_fused[{cin}->{cout}@{n}x{h}x{w}{' ' + res if res else ''}]"
+        say_timing(name, t)
+        out[name] = t
+        del x, wt, r, x_cl, w_t
+    return out
+
+
+def time_new_kernels(gen, calls, units):
+    """Phase 15: conv3x3 and deconv2x at every full-width shape of the SFF
+    packed path (time_conv_rows; ``calls``: the packed path's recorded
+    signatures over ``units`` groups), then the pool and the head tail
+    beside their plain versions, one library call for the same work and
+    their bounds. Returns {name: timing dict}."""
     import torch.nn.functional as F
 
     from sstem_tpu_torch.kernels import (
-        conv3x3_fused, conv3x3_fused_plain, deconv2x_fused,
-        deconv2x_fused_plain, head_tail, head_tail_plain, pool2x,
-        pool2x_plain)
+        head_tail, head_tail_plain, pool2x, pool2x_plain)
 
-    out = {}
-    cl = torch.channels_last
-    for n, h, w, c in ((4, 1280, 1280, 32), (4, 640, 640, 64)):
-        x, wt, scale, shift, _ = conv_inputs(n, h, w, c, c, gen, False)
-        w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=cl)
-
-        def library():
-            y = F.conv2d(x.permute(0, 3, 1, 2), w_cl, padding=1)
-            return torch.relu(y.float() * scale[:, None, None]
-                              + shift[:, None, None]).to(torch.bfloat16)
-
-        nbytes = 2 * (2 * n * h * w * c + 9 * c * c) + 8 * c
-        flop = 2 * n * h * w * c * c * 9
-        name = f"conv3x3_fused[C{c}@{n}x{h}^2]"
-        out[name] = (cuda_ms(lambda: conv3x3_fused(x, wt, scale, shift, "relu"), 20, 3),
-                     cuda_ms(lambda: conv3x3_fused_plain(x, wt, scale, shift, "relu"), 3),
-                     cuda_ms(library, 20, 3), *roofline(nbytes, flop, BF16_FLOP_PER_S))
-        del x, wt, w_cl
+    out = time_conv_rows(timing_rows(SFF_CONV_CHECKS), gen, calls, units)
+    out.update(time_deconv_rows(timing_rows(DECONV_CHECKS), gen, calls, units))
     x = randn((4, 1280, 1280, 32), gen)
     for mode, lib in (("max", F.max_pool2d), ("avg", F.avg_pool2d)):
         nbytes = 2 * 4 * 1280 * 1280 * 32 * 5 // 4
-        out[f"pool2x[{mode}]"] = (
+        out[f"pool2x[{mode}]"] = timing(
             cuda_ms(lambda: pool2x(x, mode), 50, 3),
             cuda_ms(lambda: pool2x_plain(x, mode), 5),
             cuda_ms(lambda: lib(x.permute(0, 3, 1, 2), 2), 50, 3),
-            *roofline(nbytes, 4 * 640 * 640 * 32 * 4, F32_FLOP_PER_S))
+            roofline(nbytes, 4 * 640 * 640 * 32 * 4, F32_FLOP_PER_S))
     del x
-    for n, h, w, cin, mode in ((4, 320, 320, 128, None),
-                               (4, 640, 640, 64, "post_act_half")):
-        cout = cin // 2
-        x, wt, scale, shift, res = deconv_inputs(n, h, w, cin, cout, gen, mode)
-        w_t = wt.permute(2, 3, 0, 1).contiguous(memory_format=cl)
-        nbytes = 2 * (n * h * w * cin + 9 * cin * cout
-                      + 4 * n * h * w * cout * (2 if mode else 1)) + 8 * cout
-        flop = 2 * n * h * w * cin * cout * 9
-        rm = mode or "post_affine"
-        out[f"deconv2x_fused[{cin}->{cout}@{n}x{h}^2]"] = (
-            cuda_ms(lambda: deconv2x_fused(x, wt, scale, shift, "relu", res, rm), 20, 3),
-            cuda_ms(lambda: deconv2x_fused_plain(x, wt, scale, shift, "relu", res, rm), 3),
-            cuda_ms(lambda: F.conv_transpose2d(x.permute(0, 3, 1, 2), w_t, stride=2,
-                                               padding=1, output_padding=1), 20, 3),
-            *roofline(nbytes, flop, BF16_FLOP_PER_S))
-        del x, wt, res, w_t
     x, w3, b3 = head_tail_inputs(4, 640, 640, 64, K, gen)
     w3_oihw = w3.permute(3, 2, 0, 1).contiguous()
     b3_bf = b3.to(torch.bfloat16)
@@ -805,16 +1008,13 @@ def time_new_kernels(gen):
 
     nbytes = 2 * (4 * 640 * 640 * 64 + 9 * K * K + 4 * K * 1280 * 1280) + 4 * K
     flop = 2 * 4 * 1280 * 1280 * K * K * 9
-    out["head_tail[K51@4x640^2]"] = (
+    out["head_tail[K51@4x640^2]"] = timing(
         cuda_ms(lambda: head_tail(x, w3, b3), 10, 2),
         cuda_ms(lambda: head_tail_plain(x, w3, b3), 3),
-        cuda_ms(library, 10, 2), *roofline(nbytes, flop, BF16_FLOP_PER_S))
+        cuda_ms(library, 10, 2), roofline(nbytes, flop, BF16_FLOP_PER_S))
     del x
-    for name, (ms, plain, lib, b, by) in out.items():
-        say(f"{name} kernel_ms", ms)
-        say(f"{name} plain_ms", plain)
-        say(f"{name} library_ms", lib)
-        say(f"{name} bound_ms ({by})", b)
+    for name in ("pool2x[max]", "pool2x[avg]", "head_tail[K51@4x640^2]"):
+        say_timing(name, out[name])
     return out
 
 
@@ -838,26 +1038,15 @@ def packed_phases(gen, stack, ids):
     out = {}
     phase("12 conv3x3, pool, deconv and head-tail kernels vs plain")
     out["err"] = {
-        "conv3x3_fused": max(
-            check_conv(4, 1280, 1280, 32, 32, "relu", None, gen),
-            check_conv(4, 1280, 1280, 32, 32, "leaky", "post", gen),
-            check_conv(4, 640, 640, 64, 64, "relu", "pre", gen),
-            check_conv(4, 640, 640, 64, 64, None, None, gen),
-            check_conv(4, 1280, 1280, 2, 32, "leaky", None, gen),
-            check_conv(4, 640, 640, 64, K, "relu", None, gen),
-            check_conv(4, 1280, 1280, 32, 2, None, None, gen),
-            check_conv(4, 1280, 1280, 32, 1, "relu", "pre", gen),
-            check_conv(2, 37, 53, K, K, "leaky", "post", gen)),
+        "conv3x3_fused": max(check_conv(*c, gen)
+                             for c in SFF_CONV_CHECKS + ODD_CONV_CHECKS),
         "pool2x": max(
             check_pool(4, 1280, 1280, 32, "max", gen),
             check_pool(4, 1280, 1280, 32, "avg", gen),
             check_pool(2, 37, 53, K, "max", gen),
             check_pool(2, 37, 53, K, "avg", gen)),
-        "deconv2x_fused": max(
-            check_deconv(4, 320, 320, 128, 64, "relu", None, gen),
-            check_deconv(4, 640, 640, 64, 32, "relu", "post_act_half", gen),
-            check_deconv(4, 320, 320, 128, 64, "leaky", "post_affine", gen),
-            check_deconv(2, 37, 53, K, 27, "relu", "post_act_half", gen)),
+        "deconv2x_fused": max(check_deconv(*c, gen)
+                              for c in DECONV_CHECKS + ODD_DECONV_CHECKS),
         "head_tail": max(
             check_head_tail(4, 640, 640, 64, K, gen),
             check_head_tail(2, 37, 53, K, K, gen)),
@@ -880,12 +1069,13 @@ def packed_phases(gen, stack, ids):
             "packed_fused_tail": full_size_run(
                 stack, ids, bf16, "packed_fused_tail", profile=True,
                 packed_conv=True, fused_head_tail=True)}
-    for path, (_, ms) in runs.items():
+    for path, (_, ms, _) in runs.items():
         say(f"full bfloat16 {path} ms_per_section, this phase", ms)
     out["launches"] = {k: v[0] for k, v in runs.items()}
 
-    phase("15 new kernels' times at full width (CUDA events)")
-    out["times"] = time_new_kernels(gen)
+    phase("15 the kernels' times at full width (CUDA events)")
+    _, _, calls = runs["packed"]
+    out["times"] = time_new_kernels(gen, calls, -(-len(ids) // 4))
     return out
 
 
@@ -1043,7 +1233,7 @@ SP_QUARTETS, SP_BATCH, SP_SIZE = 6, 2, 1250
 def sp_full_width(path, stack, masks):
     """Phase 18 on one path: the workload bench_sp.py:40-122 defines (6
     quartets of 1250^2, batch 2, K=51, bf16). Returns (launch counts of one
-    run, ms per quartet)."""
+    run, ms per quartet, KernelSignatures.calls of that run, batches)."""
     from sstem_tpu_torch import config
 
     wrappers = counted_kernels()
@@ -1057,10 +1247,13 @@ def sp_full_width(path, stack, masks):
 
     for fn in wrappers.values():
         fn.launches = 0
-    outs = run()
-    torch.cuda.synchronize()
+    with KernelSignatures() as sig:
+        outs = run()
+        torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in wrappers.items()}
     name = f"sp full bfloat16 {path}"
+    report_signatures(name, sig, len(batches), f"batch of {SP_BATCH}",
+                      check_channels(SP_CONV_CHECKS))
     for k, n in launches.items():
         say(f"{name} {k} launches (per batch of {SP_BATCH})",
             f"{n} ({n / len(batches)})")
@@ -1093,7 +1286,7 @@ def sp_full_width(path, stack, masks):
     profile_runs(name, run, 1, SP_QUARTETS, "quartet", f"sp_{path}_profile.json")
     del pipe
     torch.cuda.empty_cache()
-    return launches, ms
+    return launches, ms, sig.calls, len(batches)
 
 
 def check_exact(label, got, want):
@@ -1109,25 +1302,16 @@ def check_exact(label, got, want):
 
 
 def check_probe_kernels(gen):
-    """Phase 16: the probe kernels (exact) and conv3x3_fused at up to 128
-    channels (1 bf16 ulp + 2^-14 of the max) against their plain versions,
-    at the SP path's and the probes' shapes and at odd sizes."""
+    """Phase 16: the probe kernels (exact) and conv3x3_fused at every SP
+    path signature (1 bf16 ulp + 2^-14 of the max) against their plain
+    versions, at the SP path's and the probes' shapes and at odd sizes."""
     from sstem_tpu_torch.kernels import (
         roll_dynamic, roll_dynamic_plain, take_along_axis,
         take_along_axis_plain, tile_copy, tile_copy_plain)
     from sstem_tpu_torch.tools import probe_dma_conv, probe_gather
 
     err = {"pool2x": check_pool(2, 1280, 1280, 64, "max", gen),
-           "conv3x3_fused": max(
-        check_conv(2, 1280, 1280, 1, 64, "relu", None, gen),
-        check_conv(2, 1280, 1280, 64, 64, "relu", "pre", gen),
-        check_conv(2, 1280, 1280, 64, 1, None, None, gen),
-        check_conv(2, 640, 640, 64, 128, "relu", None, gen),
-        check_conv(2, 640, 640, 128, 128, "relu", None, gen),
-        check_conv(2, 640, 640, 128, 128, "relu", "pre", gen),
-        check_conv(2, 640, 640, 128, 64, "relu", None, gen),
-        check_conv(2, 37, 53, 128, 128, "leaky", "post", gen),
-        check_conv(2, 37, 53, 100, 90, "relu", "pre", gen))}
+           "conv3x3_fused": max(check_conv(*c, gen) for c in SP_CONV_CHECKS)}
     for _, shape in probe_dma_conv.COPY_SHAPES + (("odd", (7, 13, 3)),):
         x = randn(shape, gen)
         check_exact(f"probe_copy {shape}", tile_copy(x, probe_dma_conv.COPY_TY),
@@ -1198,7 +1382,7 @@ def time_probe_kernels(gen, err):
     events, beside its plain version, one library call for the same work
     and its bound; the sepconv kernel at micro_bench's shape is checked
     against its plain version first (its error goes into ``err``). Returns
-    {name: (ms, plain_ms, library_ms, bound_ms, bound_by)}."""
+    {name: timing dict}."""
     import torch.nn.functional as F
 
     from sstem_tpu_torch.kernels import (
@@ -1214,10 +1398,10 @@ def time_probe_kernels(gen, err):
         y = torch.empty_like(x)
         nbytes = 2 * x.numel() * x.element_size()
         name = f"probe_copy[{'x'.join(map(str, shape))} bf16]"
-        out[name] = (cuda_ms(lambda: tile_copy(x, probe_dma_conv.COPY_TY), 20, 3),
-                     cuda_ms(lambda: tile_copy_plain(x), 20, 3),
-                     cuda_ms(lambda: y.copy_(x), 20, 3),
-                     *roofline(nbytes, 0, BF16_FLOP_PER_S))
+        out[name] = timing(cuda_ms(lambda: tile_copy(x, probe_dma_conv.COPY_TY), 20, 3),
+                           cuda_ms(lambda: tile_copy_plain(x), 20, 3),
+                           cuda_ms(lambda: y.copy_(x), 20, 3),
+                           roofline(nbytes, 0, BF16_FLOP_PER_S))
         del x, y
     for c, co, hw in probe_dma_conv.CONV_CASES:
         x = randn((1, hw, hw, c), gen)
@@ -1226,29 +1410,29 @@ def time_probe_kernels(gen, err):
         scale, shift = scale.to(DEV), shift.to(DEV)
         w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         nbytes = 2 * (hw * hw * (c + co) + 9 * c * co) + 8 * co
-        out[f"conv3x3_fused[probe {c}->{co}@{hw}^2]"] = (
+        out[f"conv3x3_fused[probe {c}->{co}@{hw}^2]"] = timing(
             cuda_ms(lambda: conv3x3_fused(x, wt, scale, shift, None), 20, 3),
             cuda_ms(lambda: conv3x3_fused_plain(x, wt, scale, shift, None), 3),
             cuda_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_cl, padding=1), 20, 3),
-            *roofline(nbytes, 2 * hw * hw * 9 * c * co, BF16_FLOP_PER_S))
+            roofline(nbytes, 2 * hw * hw * 9 * c * co, BF16_FLOP_PER_S))
         del x, wt, w_cl
     for axis, rows, cols in probe_gather.GATHER_CASES:
         src, idx = probe_gather.gather_inputs(axis, rows, cols, DEV, gen)
         idx64 = idx.long()
-        out[f"probe_gather[axis={axis} {rows}x{cols}]"] = (
+        out[f"probe_gather[axis={axis} {rows}x{cols}]"] = timing(
             cuda_ms(lambda: take_along_axis(src, idx, axis), 50, 5),
             cuda_ms(lambda: take_along_axis_plain(src, idx, axis), 50, 5),
             cuda_ms(lambda: torch.gather(src, axis, idx64), 50, 5),
-            *roofline(12 * rows * cols, 0, F32_FLOP_PER_S))
+            roofline(12 * rows * cols, 0, F32_FLOP_PER_S))
     for rows, cols in probe_gather.ROLL_CASES:
         src = torch.rand((rows, cols), generator=gen, device=DEV)
         shift = torch.tensor([probe_gather.ROLL_SHIFT], dtype=torch.int32,
                              device=DEV)
-        out[f"probe_roll[{rows}x{cols}]"] = (
+        out[f"probe_roll[{rows}x{cols}]"] = timing(
             cuda_ms(lambda: roll_dynamic(src, shift), 50, 5),
             cuda_ms(lambda: roll_dynamic_plain(src, shift), 50, 5),
             cuda_ms(lambda: torch.roll(src, int(shift.item()), 1), 50, 5),
-            *roofline(8 * rows * cols + 4, 0, F32_FLOP_PER_S))
+            roofline(8 * rows * cols + 4, 0, F32_FLOP_PER_S))
     image = rand((1, 1, 1280, 1280), gen)
     v = rand((1, K, 1280, 1280), gen, 2.0 / K)
     h = rand((1, K, 1280, 1280), gen, 2.0 / K)
@@ -1257,64 +1441,34 @@ def time_probe_kernels(gen, err):
         "sepconv micro_bench 1x1x1280x1280 K=51 f32",
         sepconv_planar(padded, v, h), sepconv_planar_plain(padded, v, h),
         (1, 1, 1280, 1280))
-    out["sepconv_fwd[micro_bench 1x1x1280^2 f32]"] = (
+    out["sepconv_fwd[micro_bench 1x1x1280^2 f32]"] = timing(
         cuda_ms(lambda: sepconv_planar(padded, v, h), 10, 2),
         cuda_ms(lambda: sepconv_planar_plain(padded, v, h), 2),
-        None, *sepconv_bound(1, 1, 1280, 1280, K, 4, 4, False))
+        None, sepconv_bound(1, 1, 1280, 1280, K, 4, 4, False))
     del image, v, h, padded
-    for name, (ms, plain, lib, b, by) in out.items():
-        say(f"{name} kernel_ms", ms)
-        say(f"{name} plain_ms", plain)
-        say(f"{name} library_ms", lib)
-        say(f"{name} bound_ms ({by})", b)
+    for name, t in out.items():
+        say_timing(name, t)
     return out
 
 
-def time_sp_kernels(gen):
-    """Phase 18b: conv3x3_fused at the SP path's 128-channel shapes and the
-    SP pool, by CUDA events, beside the plain version, cuDNN's conv (plus
-    the epilogue as separate ops) or F.max_pool2d, and the bound."""
+def time_sp_kernels(gen, calls, batches):
+    """Phase 18b: conv3x3 at every full-width shape of the SP packed path
+    (time_conv_rows; ``calls``: the packed path's recorded signatures over
+    ``batches`` batches) and the SP pool beside its plain version,
+    F.max_pool2d and its bound."""
     import torch.nn.functional as F
 
-    from sstem_tpu_torch.kernels import (
-        conv3x3_fused, conv3x3_fused_plain, pool2x, pool2x_plain)
+    from sstem_tpu_torch.kernels import pool2x, pool2x_plain
 
-    out = {}
-    cl = torch.channels_last
-    for cin, cout, res in ((64, 128, None), (128, 128, "pre"), (128, 64, None)):
-        n, hw = SP_BATCH, 640
-        x, wt, scale, shift, r = conv_inputs(n, hw, hw, cin, cout, gen, res)
-        w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=cl)
-        pre = res == "pre"
-
-        def library():
-            y = F.conv2d(x.permute(0, 3, 1, 2), w_cl, padding=1).float()
-            if r is not None:
-                y = y + r.permute(0, 3, 1, 2).float()
-            return torch.relu(y * scale[:, None, None]
-                              + shift[:, None, None]).to(torch.bfloat16)
-
-        nbytes = 2 * (n * hw * hw * (cin + cout * (2 if r is not None else 1))
-                      + 9 * cin * cout) + 8 * cout
-        name = f"conv3x3_fused[{cin}->{cout}@{n}x{hw}^2{' res pre' if pre else ''}]"
-        out[name] = (
-            cuda_ms(lambda: conv3x3_fused(x, wt, scale, shift, "relu", r, pre), 20, 3),
-            cuda_ms(lambda: conv3x3_fused_plain(x, wt, scale, shift, "relu", r, pre), 3),
-            cuda_ms(library, 20, 3),
-            *roofline(nbytes, 2 * n * hw * hw * 9 * cin * cout, BF16_FLOP_PER_S))
-        del x, wt, r, w_cl
+    out = time_conv_rows(timing_rows(SP_CONV_CHECKS), gen, calls, batches)
     x = randn((SP_BATCH, 1280, 1280, 64), gen)
-    out["pool2x[max C64@2x1280^2]"] = (
+    out["pool2x[max C64@2x1280^2]"] = timing(
         cuda_ms(lambda: pool2x(x, "max"), 50, 3),
         cuda_ms(lambda: pool2x_plain(x, "max"), 5),
         cuda_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2), 50, 3),
-        *roofline(2 * x.numel() * 5 // 4, x.numel() * 3 // 4, F32_FLOP_PER_S))
+        roofline(2 * x.numel() * 5 // 4, x.numel() * 3 // 4, F32_FLOP_PER_S))
     del x
-    for name, (ms, plain, lib, b, by) in out.items():
-        say(f"{name} kernel_ms", ms)
-        say(f"{name} plain_ms", plain)
-        say(f"{name} library_ms", lib)
-        say(f"{name} bound_ms ({by})", b)
+    say_timing("pool2x[max C64@2x1280^2]", out["pool2x[max C64@2x1280^2]"])
     return out
 
 
@@ -1337,13 +1491,14 @@ def sp_and_probe_phases(gen):
         (rng.random(tuple(stack.shape)) > 0.8).astype(np.uint8) * 255).to(DEV)
     runs = {path: sp_full_width(path, stack, masks)
             for path in ("cudnn", "packed")}
-    for path, (_, ms) in runs.items():
+    for path, (_, ms, _, _) in runs.items():
         say(f"sp full bfloat16 {path} ms_per_quartet, this phase", ms)
     say("sp full packed speedup over cudnn", runs["cudnn"][1] / runs["packed"][1])
     res["sp_launches"] = runs["packed"][0]
     del stack, masks
     torch.cuda.empty_cache()
-    res["sp_times"] = time_sp_kernels(gen)
+    _, _, calls, batches = runs["packed"]
+    res["sp_times"] = time_sp_kernels(gen, calls, batches)
 
     phase("19 the probes at their JAX shapes (CUDA events)")
     res["probe_launches"] = run_probes()
@@ -1376,16 +1531,14 @@ def sp_kernel_entries(res):
     run (phase 19a), all shapes together."""
     entries = []
     times = {**res["sp_times"], **res["probe_times"]}
-    for name, (ms, plain, lib, b, by) in times.items():
+    for name, t in times.items():
         prefix, source, replaces, where = next(
             k for k in SP_KERNELS if name.startswith(k[0]))
         kernel = name.split("[")[0]
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": res[where][kernel],
-            "max_abs_err": res["err"].get(kernel, 0.0), "ms": ms,
-            "plain_ms": plain, "bound_ms": b, "bound_by": by,
-            "library_ms": lib})
+            "max_abs_err": res["err"].get(kernel, 0.0), **t})
     return entries
 
 
@@ -1407,17 +1560,30 @@ def new_kernel_entries(res):
     launches are the kernel's on its path in phase 14 (all shapes)."""
     entries = []
     for kernel, source, replaces, path in NEW_KERNELS:
-        for name, (ms, plain, lib, b, by) in res["times"].items():
+        for name, t in res["times"].items():
             if name.split("[")[0] != kernel:
                 continue
             entries.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": res["launches"][path][kernel],
-                "max_abs_err": res["err"][kernel], "ms": ms,
-                "plain_ms": plain, "bound_ms": b, "bound_by": by,
-                "library_ms": lib})
+                "max_abs_err": res["err"][kernel], **t})
     return entries
+
+
+def ptxas_summary(log):
+    """One line per kernel of the wgmma design from the build's ptxas -v
+    output: registers, spills, static shared memory (the dynamic shared
+    memory of each instantiation is csrc's Smem plan, PERF.md)."""
+    import re
+
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(conv3x3|deconv2x)_wgmma_kernelILi(\d+)ELi(\d+)", line)
+            name = f"{m.group(1)} wgmma Cin_p={m.group(2)} N={m.group(3)}" if m else None
+        elif name and ("spill" in line or "Used" in line):
+            say(f"ptxas {name}", line.split(":", 1)[-1].strip())
 
 
 def main():
@@ -1456,6 +1622,7 @@ def main():
     _build.library()
     print(log.strip())
     say("build seconds", time.perf_counter() - t0)
+    ptxas_summary(log)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 

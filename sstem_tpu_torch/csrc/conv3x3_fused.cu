@@ -13,34 +13,59 @@
 // What bounds it on the H100: at the SFF serving path's shapes (C 32 at
 // 4x1280^2, C 64 at 4x640^2) one conv moves ~0.84 or ~0.42 GB and does
 // ~121 GFLOP, so device-memory bytes bound it (0.25 / 0.125 ms) with the
-// tensor cores close behind at C 64; on plain FMAs the FLOPs alone would
-// take 1.8 ms. At the SP path's 128 -> 128 (2x640^2, 241 GFLOP, 0.42 GB)
-// the tensor cores bound it (0.244 ms against 0.125 ms of bytes).
+// tensor cores close behind; at the SP path's 128 -> 128 (2x640^2, 241
+// GFLOP, 0.42 GB) the tensor cores bound it (0.244 ms).
 //
-// Design: an implicit GEMM on warp-level tensor cores (mma.sync m16n8k16,
-// bf16 in, f32 sums; conv_tile.cuh). A block owns 8 x 16 output pixels at a
-// time and up to 64 output channels; its 4 warps take two pixel rows each.
-// Above 64 output channels the channels are split over blocks (grid y): the
-// nine taps' weights of 128 input channels for all 128 outputs would take
-// 9 x 128 x 136 x 2 B = 306 KB of shared memory, more than the 227 KB a
-// block has, while a 64-channel slice takes 153 KB plus the 49 KB input
-// tile (one block per SM). Each slice reads the input tile again, from L2
-// mostly. The
-// input tile with its 1-pixel halo (10 x 18 pixels, zero outside the image,
-// channels zero-padded to a multiple of 16 in shared memory only) and all
-// nine taps' weights sit in shared memory; each tap is one GEMM step whose A
-// rows are shifted tile pixels. Blocks are persistent, so the weights are
-// loaded once per block, not once per tile. The epilogue runs on the f32
-// accumulators in registers and writes bf16 pairs. The TPU kernel's pixel
-// packing (C*P = 128 lanes, block-structured weights, zero quads, rolls)
-// existed to fill the TPU's lanes and is not carried over. Offsets into the
-// activations are 64-bit (tensors reach 0.84 GB).
+// Two designs, picked by shape in sstem_conv3x3_fused (never on failure):
 //
-// Not yet done (later work): cp.async or TMA double-buffering of the input
-// tile, wgmma, and streaming the 128-channel weights by tap so that two
-// blocks fit on an SM.
+// wgmma (Cin a multiple of 8, Cout >= 16; every conv of the packed paths
+// but the gray-pair first convs, Cin 1 or 2, odd Cin such as K = 51, and
+// the narrow heads, Cout 1 or 2): an implicit GEMM on warpgroup tensor
+// cores on hopper.cuh's mainloop. M = 64 output pixels of one row, N = the
+// block's output channels (32, 64 or 128: one wgmma.m64nNk16), K = 16 input
+// channels of one tap; the nine taps accumulate in f32 registers. A block
+// is persistent and warp-specialized: one producer warp stages each tile's
+// input halo (R + 2 rows of 66 pixels) by TMA into a ring of 2-4 stages
+// (mbarriers full / empty); a box reaching past the image reads zeros,
+// which is the conv's zero padding. Two consumer warpgroups take alternate
+// tiles of R output rows (R = 4, 2, 1 for N = 32, 64, 128: 64 accumulator
+// registers a thread) and take turns on the tensor cores, so one's
+// epilogue runs during the other's wgmmas. All nine taps' weights stay in
+// shared memory, loaded once a block. The layout [Cin/8][pixel][8] makes
+// each tap's A operand an address offset (hopper.cuh); TMA over cp.async:
+// a cp.async design (128 threads issuing 16-byte copies) spent ~4000
+// cycles a tile issuing them and set the pace, one thread issuing one box
+// an 8-channel chunk does not (the box still moves 16 bytes a pixel). The
+// epilogue keeps the plain version's f32 order on the accumulators, with
+// scale and shift in registers and act and residual mode compile-time,
+// writes the bf16 pairs into a dense swizzled staging buffer (no bank
+// conflicts) and stores each output row with one TMA store (clipped at
+// the image edges; element stores when Cout % 8 != 0). The residual comes
+// in by cp.async into the same staging, issued before the tile's wgmmas.
+//
+// Shared memory (bytes; weights + ring stages + staging for both
+// consumers), by (Cin_p, N), as the paths call them:
+//   (32, 32)   18432 + 4 x 25600 + 32768    R 4
+//   (32, 64)   36864 + 4 x 16896 + 32768    R 2
+//   (64, 64)   73728 + 3 x 33792 + 32768    R 2
+//   (64, 128) 147456 + 3 x 12800 + 32768    R 1, K staged 32 at a time
+//   (128, 64) 147456 + 3 x 16896 + 32768    R 2, K staged 32 at a time
+// 128 -> 128 keeps 64-channel weight slices resident (the 288 KB of all
+// 128 do not fit) and splits the outputs over grid.y, so each slice stages
+// the input again, the second time mostly from L2.
+//
+// What holds it back (chip_smoke.py's readings, PERF.md): the producer's
+// 16-byte-wide boxes (~300 cycles of the TMA unit a box), the consumers'
+// turns on the tensor cores, and at N = 32 the epilogue.
+//
+// mma.sync (the other shapes, sstem_conv3x3_fused_mma): the first port's
+// design, mma.sync m16n8k16 from conv_tile.cuh, 8 x 16 output tiles loaded
+// synchronously by 4 warps, channels padded to 16 in shared memory, outputs
+// above 64 channels split over grid.y.
+//
+// Offsets into the activations are 64-bit (tensors reach 0.84 GB).
 
-#include "conv_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -185,13 +210,332 @@ cudaError_t launch_cout(int cout_p, const void* x, const void* w,
 
 int pad16(int c) { return (c + 15) / 16 * 16; }
 
+
+// ---------------------------------------------------------------------------
+// the wgmma design
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace sstem::hopper;
+using sstem::smem_addr;
+
+template <int CIN_P, int N>
+struct Cfg {
+  // output rows per tile (one consumer warpgroup): accumulators of 64 f32
+  // registers a thread
+  static constexpr int kRows = N <= 32 ? 4 : (N == 64 ? 2 : 1);
+  static constexpr int kKG =
+      CIN_P <= 32 ? CIN_P : ((CIN_P == 128 || N == 128) ? 32 : 64);
+  static constexpr int kItems = CIN_P / kKG;
+  static constexpr int kHR = kRows + 2;
+  template <int S>
+  using Layout = Smem<CIN_P, N, 9, kKG, kHR, S, kConsumers * kRows * kTileW>;
+  static constexpr int kStages = ring_stages<Layout>();
+  using L = Layout<kStages>;
+};
+
+// res_mode: 0 none, 1 added before the affine, 2 after it (both before act)
+template <int CIN_P, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
+                     const __grid_constant__ CUtensorMap omap,
+                     const bf16* __restrict__ w,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ shift,
+                     const bf16* __restrict__ res, bf16* __restrict__ out,
+                     int h, int wd, int cin, int cout, int act, int res_mode,
+                     int tiles_x, int tiles_y, int tiles) {
+  using C = Cfg<CIN_P, N>;
+  using L = typename C::L;
+  using S = Stage<C::kKG, C::kHR>;
+  constexpr int R = C::kRows;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int co0 = blockIdx.y * N;
+  const int nc = min(N, cout - co0);
+  setup<L, CIN_P, N, 9, C::kStages>(smem, w, scale, shift, cin, cout, co0);
+
+  // consumer warpgroup wgi (the producer warp, wgi 2, uses none of this)
+  const int wgi = threadIdx.x / 128;
+  const int wt = threadIdx.x % 128;
+  const int warp = wt / 32;
+  const int g = (wt % 32) / 4;
+  const int t = wt % 4;
+  const uint32_t w_s = smem_addr(smem);
+  constexpr int kPx = R * kTileW;  // staged pixels: the tile's rows
+  unsigned char* staging =
+      smem + L::kStaging + (wgi < kConsumers ? wgi : 0) * kPx * N * 2;
+  const float* sc = reinterpret_cast<const float*>(smem + L::kScale);
+  const float* sh = reinterpret_cast<const float*>(smem + L::kShift);
+  float acc[R][N / 2];
+
+  auto where = [&](int tile, int& b, int& y0, int& x0) {
+    const int rest = tile / tiles_x;
+    x0 = (tile - rest * tiles_x) * kTileW;
+    b = rest / tiles_y;
+    y0 = (rest - b * tiles_y) * R;
+  };
+  auto origin = [&](int tile, int& b, int& ys, int& xs) {
+    where(tile, b, ys, xs);
+    ys -= 1;
+    xs -= 1;
+  };
+  const int bar = 1 + wgi;  // named barrier of this consumer warpgroup
+  // the last tile's TMA stores have read the staging
+  auto staging_free = [&]() {
+    if (wt == 0) bulk_wait_read();
+    named_bar(bar, 128);
+  };
+  // the residual rows into the staging, in flight during the wgmmas
+  auto prefetch = [&](int tile) {
+    if (!res_mode) return;
+    staging_free();
+    int b, y0, x0;
+    where(tile, b, y0, x0);
+    const int px = min(kTileW, wd - x0);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int oy = y0 + r;
+      if (oy < h) {
+        global_to_staging<N>(
+            staging + r * kTileW * Staging<N>::kRowBytes, kPx,
+            res + ((static_cast<size_t>(b) * h + oy) * wd + x0) * cout + co0,
+            px, nc, cout, wt);
+      }
+    }
+    cp_async_commit();
+  };
+  auto mma = [&](int kg, uint32_t stage) {
+    if (kg == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) acc[r][i] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+#pragma unroll
+      for (int kk = 0; kk < C::kKG / 16; ++kk) {
+        const uint64_t bd = gmma_desc(
+            w_s + ((tap * (CIN_P / 8) + kg * (C::kKG / 8) + 2 * kk) * N) * 16,
+            N * 16, 128);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const uint64_t ad =
+              gmma_desc(stage + 2 * kk * S::kChunkBytes +
+                            ((r + tap / 3) * kPitch + tap % 3) * 16,
+                        S::kChunkBytes, 128);
+          wgmma_m64k16(acc[r], ad, bd);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int r = 0; r < R; ++r) fence_operands(acc[r]);
+  };
+  Affine<N> aff;
+  aff.load(sc, sh, t);
+  // one output row of the tile (pixels m0..m0+63 of the staging): residual
+  // pairs read first, then the math in f32 in the plain version's order,
+  // then the bf16 pairs stored
+  auto finish_row = [&](float (&d)[N / 2], int m0, auto act_c, auto res_c) {
+    constexpr int ACT = decltype(act_c)::value;
+    constexpr int RES = decltype(res_c)::value;
+    auto at = [&](int i, int half) {
+      return staging + Staging<N>::offset(kPx, m0 + warp * 16 + g + 8 * half,
+                                          8 * i + 2 * t);
+    };
+    float2 rv[N / 8][2];
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        rv[i][half] = RES ? unpack2(at(i, half)) : make_float2(0.f, 0.f);
+    uint32_t pk[N / 8][2];
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float v[2] = {d[4 * i + 2 * half], d[4 * i + 2 * half + 1]};
+        const float rs[2] = {rv[i][half].x, rv[i][half].y};
+        const float scj[2] = {aff.scale[i].x, aff.scale[i].y};
+        const float shj[2] = {aff.shift[i].x, aff.shift[i].y};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float y = v[j];
+          if (RES == 1) y = __fadd_rn(y, rs[j]);
+          y = __fadd_rn(__fmul_rn(y, scj[j]), shj[j]);
+          if (RES == 2) y = __fadd_rn(y, rs[j]);
+          v[j] = activate_c<ACT>(y);
+        }
+        pk[i][half] = pack2u(v[0], v[1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<uint32_t*>(at(i, half)) = pk[i][half];
+  };
+  auto epilogue = [&](int tile, int kg) {
+    if (kg != C::kItems - 1) return;
+    int b, y0, x0;
+    where(tile, b, y0, x0);
+    if (res_mode) {
+      cp_async_wait<0>();  // this thread's residual pieces
+      named_bar(bar, 128);
+    } else {
+      staging_free();
+    }
+    dispatch_epilogue(act, res_mode, [&](auto act_c, auto res_c) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) finish_row(acc[r], r * kTileW, act_c, res_c);
+    });
+    if (cout % 8 == 0) {
+      // one TMA store a row and 64-channel box; the edges are clipped
+      fence_proxy_async();
+      named_bar(bar, 128);
+      if (wt == 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (y0 + r >= h) continue;
+#pragma unroll
+          for (int k = 0; k < N / Staging<N>::kBox; ++k) {
+            tma_store_4d(&omap,
+                         staging + Staging<N>::offset(kPx, r * kTileW,
+                                                      k * Staging<N>::kBox),
+                         co0 + k * Staging<N>::kBox, x0, y0 + r, b);
+          }
+        }
+        bulk_commit();
+      }
+    } else {
+      named_bar(bar, 128);
+      const int px = min(kTileW, wd - x0);
+      for (int r = 0; r < R; ++r) {
+        if (y0 + r >= h) continue;
+        staging_to_global<N>(
+            out + ((static_cast<size_t>(b) * h + y0 + r) * wd + x0) * cout + co0,
+            staging + Staging<N>::offset(kPx, r * kTileW, 0), kPx, px, nc,
+            cout, wt);
+      }
+      named_bar(bar, 128);
+    }
+  };
+  mainloop<C::kKG, C::kHR, C::kStages, C::kItems, C::kItems>(
+      smem + L::kRing, reinterpret_cast<uint64_t*>(smem + L::kFull),
+      reinterpret_cast<uint64_t*>(smem + L::kEmpty),
+      reinterpret_cast<uint64_t*>(smem + L::kOrder), &tmap, tiles,
+      origin, prefetch, mma, epilogue);
+  if (threadIdx.x % 128 == 0) bulk_wait_read();  // the stores' sources
+}
+
+template <int CIN_P, int N>
+cudaError_t launch(const void* x, const void* w, const float* scale,
+                   const float* shift, const void* res, void* out, int n, int h,
+                   int wd, int cin, int cout, int act, int res_mode,
+                   cudaStream_t stream) {
+  using C = Cfg<CIN_P, N>;
+  auto kernel = conv3x3_wgmma_kernel<CIN_P, N>;
+  const size_t smem = C::L::kBytes;
+  const int tiles_x = (wd + kTileW - 1) / kTileW;
+  const int tiles_y = (h + C::kRows - 1) / C::kRows;
+  const long long tiles = static_cast<long long>(n) * tiles_x * tiles_y;
+  if (tiles > INT32_MAX) return cudaErrorInvalidValue;
+  const int slices = (cout + N - 1) / N;
+  CUtensorMap tmap, omap = {};
+  cudaError_t err = make_tensor_map(&tmap, x, n, h, wd, cin, C::kHR);
+  if (err == cudaSuccess && cout % 8 == 0) {
+    err = make_out_map(&omap, out, n, h, wd, cout, Staging<N>::kBox, kTileW);
+  }
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = sstem::persistent_grid(kernel, kThreads, smem, tiles, &grid);
+  if (err != cudaSuccess) return err;
+  const dim3 blocks((grid + slices - 1) / slices, slices);
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      tmap, omap, static_cast<const bf16*>(w), scale, shift,
+      static_cast<const bf16*>(res), static_cast<bf16*>(out), h, wd, cin, cout,
+      act, res_mode, tiles_x, tiles_y, static_cast<int>(tiles));
+  return cudaGetLastError();
+}
+
+template <int CIN_P>
+cudaError_t launch_n(int cout, const void* x, const void* w, const float* sc,
+                     const float* sh, const void* res, void* out, int n, int h,
+                     int wd, int cin, int act, int res_mode, cudaStream_t s) {
+  if (cout <= 32) {
+    return launch<CIN_P, 32>(x, w, sc, sh, res, out, n, h, wd, cin, cout, act,
+                             res_mode, s);
+  }
+  if (cout <= 64 || CIN_P == 128) {  // 128 inputs: 64-channel slices
+    return launch<CIN_P, 64>(x, w, sc, sh, res, out, n, h, wd, cin, cout, act,
+                             res_mode, s);
+  }
+  return launch<CIN_P, (CIN_P < 128 ? 128 : 64)>(
+      x, w, sc, sh, res, out, n, h, wd, cin, cout, act, res_mode, s);
+}
+
+}  // namespace wg
+
 }  // namespace
+
+// defined below
+extern "C" int sstem_conv3x3_fused_mma(const void* x, const void* w,
+                                       const void* scale, const void* shift,
+                                       const void* res, void* out, int n, int h,
+                                       int wd, int cin, int cout, int act,
+                                       int res_mode, void* stream);
 
 // x (n, h, w, cin) bf16; w (3, 3, cin, cout) bf16 (HWIO); scale, shift
 // (cout,) f32; res (n, h, w, cout) bf16 or null; out (n, h, w, cout) bf16.
 // cin, cout in [1, 128]; act 0 none, 1 relu, 2 leaky 0.2; res_mode 0 none,
-// 1 before the affine, 2 after it.
+// 1 before the affine, 2 after it. The wgmma design takes cin % 8 == 0 and
+// cout >= 16 (kernels/conv3x3.py: design), the mma.sync design the rest.
 extern "C" int sstem_conv3x3_fused(const void* x, const void* w,
+                                   const void* scale, const void* shift,
+                                   const void* res, void* out, int n, int h,
+                                   int wd, int cin, int cout, int act,
+                                   int res_mode, void* stream) {
+  if (n < 1 || h < 1 || wd < 1 || cin < 1 || cin > 128 || cout < 1 ||
+      cout > 128 || act < 0 || act > 2 || res_mode < 0 || res_mode > 2 ||
+      (res_mode != 0 && res == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (cin % 8 != 0 || cout < 16) {
+    return sstem_conv3x3_fused_mma(x, w, scale, shift, res, out, n, h, wd, cin,
+                                   cout, act, res_mode, stream);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  switch (pad16(cin)) {
+    case 16:
+      return static_cast<int>(wg::launch_n<16>(cout, x, w, sc, sh, res, out, n,
+                                               h, wd, cin, act, res_mode, s));
+    case 32:
+      return static_cast<int>(wg::launch_n<32>(cout, x, w, sc, sh, res, out, n,
+                                               h, wd, cin, act, res_mode, s));
+    case 48:
+    case 64:
+      return static_cast<int>(wg::launch_n<64>(cout, x, w, sc, sh, res, out, n,
+                                               h, wd, cin, act, res_mode, s));
+    default:  // 80 to 128
+      return static_cast<int>(wg::launch_n<128>(cout, x, w, sc, sh, res, out,
+                                                n, h, wd, cin, act, res_mode,
+                                                s));
+  }
+}
+
+// the mma.sync design, for the shapes above that the wgmma design does not
+// take
+// x (n, h, w, cin) bf16; w (3, 3, cin, cout) bf16 (HWIO); scale, shift
+// (cout,) f32; res (n, h, w, cout) bf16 or null; out (n, h, w, cout) bf16.
+// cin, cout in [1, 128]; act 0 none, 1 relu, 2 leaky 0.2; res_mode 0 none,
+// 1 before the affine, 2 after it.
+extern "C" int sstem_conv3x3_fused_mma(const void* x, const void* w,
                                    const void* scale, const void* shift,
                                    const void* res, void* out, int n, int h,
                                    int wd, int cin, int cout, int act,

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` (with the shared header ``csrc/conv_tile.cuh``) is compiled
+``csrc/*.cu`` (with the shared headers ``csrc/conv_tile.cuh`` and
+``csrc/hopper.cuh``) is compiled
 with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together
 (the build takes the slowest source's time, not the sum; the log gives each
 source's seconds), and linked into one shared library with a plain C
@@ -47,8 +48,11 @@ _ENTRY_POINTS = {
     # im, flow, out, n, h, w, stream
     "sstem_warp_bilinear": [_P, _P, _P, _I, _I, _I, _P],
     # x, w, scale, shift, res, out, n, h, w, cin, cout, act, res_mode, stream
+    # (the _mma entry points: the mma.sync design at any shape)
     "sstem_conv3x3_fused": [_P] * 6 + [_I] * 7 + [_P],
+    "sstem_conv3x3_fused_mma": [_P] * 6 + [_I] * 7 + [_P],
     "sstem_deconv2x_fused": [_P] * 6 + [_I] * 7 + [_P],
+    "sstem_deconv2x_fused_mma": [_P] * 6 + [_I] * 7 + [_P],
     # x, out, n, h, w, c, is_max, stream
     "sstem_pool2x": [_P, _P, _I, _I, _I, _I, _I, _P],
     # x, w, bias, out, n, hi, wi, cx, cin, k, stream

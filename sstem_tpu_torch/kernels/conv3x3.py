@@ -17,6 +17,14 @@ takes plain NHWC tensors and HWIO weights with any channel count up to 128
 (the JAX kernel's C in {8, ..., 128}; its 128 -> 64 convs pad the output to
 128 and slice, the port's write 64 channels). CUDA tensors go through
 ``csrc/conv3x3_fused.cu``; CPU tensors through ``conv3x3_fused_plain``.
+
+The CUDA kernel has two designs, which the C entry point picks by shape
+(``design``), never as a fallback: the Hopper one (``wgmma`` on input tiles
+staged by cp.async in a ring of shared-memory stages, coalesced epilogue)
+where Cin is a multiple of 8 and Cout at least 16, which is every conv of
+the packed paths at 32, 64 and 128 channels, and the ``mma.sync`` one of
+the first port for the rest: the gray-pair first convs (Cin 1 or 2), odd
+Cin such as K=51, and the narrow heads (Cout 1 or 2).
 """
 
 import torch
@@ -26,6 +34,19 @@ from sstem_tpu_torch.kernels import _build
 
 ACTS = {None: 0, "relu": 1, "leaky": 2}
 MAX_CHANNELS = 128
+# the wgmma design's shapes, as csrc/conv3x3_fused.cu picks them
+WGMMA_CIN_MULTIPLE, WGMMA_MIN_COUT = 8, 16
+# the C entry point of each design ("sstem_conv3x3_fused" picks by shape)
+ENTRY_POINTS = {"wgmma": "sstem_conv3x3_fused",
+                "mma": "sstem_conv3x3_fused_mma"}
+
+
+def design(cin, cout):
+    """The kernel design that serves a conv of cin -> cout channels:
+    'wgmma' or 'mma' (the same rule as the C entry point's)."""
+    if cin % WGMMA_CIN_MULTIPLE == 0 and cout >= WGMMA_MIN_COUT:
+        return "wgmma"
+    return "mma"
 
 
 def fold_affine(cout, bias=None, bn_scale=None, bn_shift=None):
@@ -115,19 +136,29 @@ def conv3x3_fused(x, w, scale, shift, act=None, residual=None,
         return conv3x3_fused_plain(x, w, scale, shift, act, residual,
                                    residual_pre_affine)
     _build.require_cuda("conv3x3_fused", *tensors)
+    out = launch_entry("sstem_conv3x3_fused", x, w, scale, shift, act,
+                       residual, residual_pre_affine)
+    conv3x3_fused.launches += 1
+    return out
+
+
+conv3x3_fused.launches = 0
+
+
+def launch_entry(entry, x, w, scale, shift, act=None, residual=None,
+                 residual_pre_affine=False):
+    """One launch of a C entry point (``ENTRY_POINTS``) on checked CUDA
+    tensors, not counted in ``conv3x3_fused.launches``: ``conv3x3_fused``
+    launches through it, and chip_smoke.py times each design with it."""
     n, h, wd, cin = x.shape
     cout = w.shape[3]
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     res_mode = 0 if residual is None else (1 if residual_pre_affine else 2)
     lib = _build.library()
     with torch.cuda.device(x.device):
-        rc = lib.sstem_conv3x3_fused(
+        rc = getattr(lib, entry)(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             None if residual is None else residual.data_ptr(), out.data_ptr(),
             n, h, wd, cin, cout, ACTS[act], res_mode, _build.stream())
-    _build.check(rc, "sstem_conv3x3_fused")
-    conv3x3_fused.launches += 1
+    _build.check(rc, entry)
     return out
-
-
-conv3x3_fused.launches = 0

@@ -15,16 +15,35 @@ weight (Cin, Cout, 3, 3) permuted to (3, 3, Cin, Cout); JAX's
 (kh, kw, Cout, Cin) maps to it by swapping the last two axes. The JAX
 kernel's pixel packing is not ported. CUDA tensors go through
 ``csrc/deconv2x_fused.cu``; CPU tensors through ``deconv2x_fused_plain``.
+
+As for conv3x3, the C entry point picks one of two designs by shape
+(``design``): the Hopper one (``wgmma`` on cp.async-staged tiles, all four
+output parities of a tile computed before whole output rows are written)
+where Cin is a multiple of 8 and Cout at least 16, which is both deconvs
+of FusionNet and UNetSFF on the packed path (128 -> 64, 64 -> 32), and the
+first port's ``mma.sync`` one for the rest.
 """
 
 import torch
 import torch.nn.functional as F
 
 from sstem_tpu_torch.kernels import _build
-from sstem_tpu_torch.kernels.conv3x3 import ACTS, activate
+from sstem_tpu_torch.kernels.conv3x3 import (
+    ACTS, WGMMA_CIN_MULTIPLE, WGMMA_MIN_COUT, activate)
 
 RES_MODES = {"post_affine": 1, "post_act_half": 2}
 MAX_IN, MAX_OUT = 128, 64
+# the C entry point of each design ("sstem_deconv2x_fused" picks by shape)
+ENTRY_POINTS = {"wgmma": "sstem_deconv2x_fused",
+                "mma": "sstem_deconv2x_fused_mma"}
+
+
+def design(cin, cout):
+    """The kernel design that serves a deconv of cin -> cout channels:
+    'wgmma' or 'mma' (the same rule as the C entry point's)."""
+    if cin % WGMMA_CIN_MULTIPLE == 0 and cout >= WGMMA_MIN_COUT:
+        return "wgmma"
+    return "mma"
 
 
 def deconv2x_fused_plain(x, w, scale, shift, act=None, residual=None,
@@ -90,17 +109,30 @@ def deconv2x_fused(x, w, scale, shift, act=None, residual=None,
         return deconv2x_fused_plain(x, w, scale, shift, act, residual,
                                     res_mode)
     _build.require_cuda("deconv2x_fused", *tensors)
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    mode = 0 if residual is None else RES_MODES[res_mode]
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = lib.sstem_deconv2x_fused(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            None if residual is None else residual.data_ptr(), out.data_ptr(),
-            n, h, wd, cin, cout, ACTS[act], mode, _build.stream())
-    _build.check(rc, "sstem_deconv2x_fused")
+    out = launch_entry("sstem_deconv2x_fused", x, w, scale, shift, act,
+                       residual, res_mode)
     deconv2x_fused.launches += 1
     return out
 
 
 deconv2x_fused.launches = 0
+
+
+def launch_entry(entry, x, w, scale, shift, act=None, residual=None,
+                 res_mode="post_affine"):
+    """One launch of a C entry point (``ENTRY_POINTS``) on checked CUDA
+    tensors, not counted in ``deconv2x_fused.launches``: ``deconv2x_fused``
+    launches through it, and chip_smoke.py times each design with it."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    out = torch.empty((n, 2 * h, 2 * wd, cout), dtype=x.dtype,
+                      device=x.device)
+    mode = 0 if residual is None else RES_MODES[res_mode]
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, entry)(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            None if residual is None else residual.data_ptr(), out.data_ptr(),
+            n, h, wd, cin, cout, ACTS[act], mode, _build.stream())
+    _build.check(rc, entry)
+    return out

@@ -1,0 +1,151 @@
+"""Kernel coverage of the port's packed serving paths, on the CPU.
+
+The SFF packed section (head tails on cuDNN and fused) and the SP packed
+restore run at full channel widths on tiny inputs, with zeroed weights
+(only the shapes matter). Every conv3x3_fused and deconv2x_fused call is
+recorded by chip_smoke.py's KernelSignatures and must appear in its
+kernel-vs-plain check lists, which phases 12 and 16 run on the card, and
+have a kernel design. A path that starts calling a new channel signature
+fails here before it reaches the card. No JAX.
+"""
+
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from sstem_tpu_torch import config
+from sstem_tpu_torch.infer.pipeline import SFFPipeline, SPPipeline
+from sstem_tpu_torch.kernels import conv3x3, deconv
+from sstem_tpu_torch.models import FusionNet, FusionNetSP, IFNet, UNetSFF, UNetSP
+from sstem_tpu_torch.models.layers import skip_init
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+DESIGNS = {"conv3x3": conv3x3, "deconv2x": deconv}
+
+
+def _zeroed(model):
+    with torch.no_grad():
+        for p in model.parameters():
+            p.zero_()
+        for name, b in model.named_buffers():
+            b.fill_(1.0 if name.endswith("running_var") else 0.0)
+    return model
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def sff_calls(smoke):
+    """KernelSignatures of one packed section (a group of 2) per head-tail
+    choice."""
+    with skip_init():
+        models = (_zeroed(IFNet(smoke.K)), _zeroed(FusionNet(ngf=32)),
+                  _zeroed(UNetSFF()))
+    calls = {}
+    for fused in (False, True):
+        pipe = SFFPipeline(*models, device="cpu", dtype=config.SERVING_DTYPE,
+                           packed_conv=True, fused_head_tail=fused)
+        with smoke.KernelSignatures() as sig:
+            pipe.section(torch.zeros(2, 3, 64, 64))
+        calls[fused] = sig
+    return calls
+
+
+@pytest.fixture(scope="module")
+def sp_calls(smoke):
+    """KernelSignatures of one packed SP restore (one quartet)."""
+    with skip_init():
+        nets = (_zeroed(IFNet(smoke.K, n_frames=2)), _zeroed(UNetSP()),
+                _zeroed(FusionNetSP()))
+    pipe = SPPipeline(*nets, device="cpu", dtype=config.SERVING_DTYPE,
+                      packed_conv=True)
+    img = np.zeros((1, 64, 64), np.uint8)
+    with smoke.KernelSignatures() as sig:
+        pipe.restore(img, img, img, img, img, img)
+    return sig
+
+
+# the tiny runs' inputs are 64^2; the paths run 1280^2 (SFF: 4 sections a
+# group, SP: batch 2)
+SCALE = 1280 // 64
+
+
+def full_width_shapes(sig, n):
+    """{(kernel, n, h, w, cin, cout, residual)} of the recorded calls, scaled
+    to the full-width run."""
+    return {(k[0], n, k[2] * SCALE, k[3] * SCALE, k[4], k[5], k[7])
+            for k in sig.calls}
+
+
+def timed_shapes(smoke, checks, kernel="conv3x3"):
+    return {(kernel, *row) for row in smoke.timing_rows(checks)}
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["cudnn_tail", "fused_tail"])
+def test_sff_packed_signatures_are_checked_on_the_card(smoke, sff_calls, fused):
+    sig = sff_calls[fused]
+    checked = (smoke.check_channels(smoke.SFF_CONV_CHECKS)
+               | smoke.check_channels(smoke.DECONV_CHECKS, "deconv2x"))
+    missing = sig.channels() - checked
+    assert not missing, f"not in chip_smoke.py's check lists: {missing}"
+    timed = (timed_shapes(smoke, smoke.SFF_CONV_CHECKS)
+             | timed_shapes(smoke, smoke.DECONV_CHECKS, "deconv2x"))
+    untimed = full_width_shapes(sig, 4) - timed
+    assert not untimed, f"shapes phase 15 does not time: {untimed}"
+    # and the launches per group that phase 14 asserts
+    want = smoke.PATH_LAUNCHES["packed_fused_tail" if fused else "packed"]
+    for kernel, name in (("conv3x3", "conv3x3_fused"),
+                         ("deconv2x", "deconv2x_fused")):
+        got = sum(n for k, n in sig.calls.items() if k[0] == kernel)
+        assert got == want[name], (kernel, got, want[name])
+
+
+def test_sp_packed_signatures_are_checked_on_the_card(smoke, sp_calls):
+    missing = sp_calls.channels() - smoke.check_channels(smoke.SP_CONV_CHECKS)
+    assert not missing, f"not in chip_smoke.py's check lists: {missing}"
+    untimed = (full_width_shapes(sp_calls, smoke.SP_BATCH)
+               - timed_shapes(smoke, smoke.SP_CONV_CHECKS))
+    assert not untimed, f"shapes phase 18b does not time: {untimed}"
+    # one restore call: phase 18's conv3x3 launches per batch
+    got = sum(sp_calls.calls.values())
+    assert got == smoke.SP_LAUNCHES["packed"]["conv3x3_fused"]
+
+
+def test_every_path_signature_has_a_design(sff_calls, sp_calls):
+    for sig in (*sff_calls.values(), sp_calls):
+        for kernel, cin, cout, _, _ in sig.channels():
+            module = DESIGNS[kernel]
+            assert module.design(cin, cout) in module.ENTRY_POINTS
+
+
+@pytest.mark.parametrize("kernel, cin, cout, want", [
+    ("conv3x3", 32, 32, "wgmma"), ("conv3x3", 64, 51, "wgmma"),
+    ("conv3x3", 128, 128, "wgmma"), ("conv3x3", 2, 32, "mma"),
+    ("conv3x3", 6, 6, "mma"), ("conv3x3", 64, 1, "mma"),
+    ("conv3x3", 51, 51, "mma"), ("deconv2x", 128, 64, "wgmma"),
+    ("deconv2x", 64, 32, "wgmma"), ("deconv2x", 51, 27, "mma")])
+def test_design_rule(kernel, cin, cout, want):
+    assert DESIGNS[kernel].design(cin, cout) == want
+
+
+def test_check_lists_run_at_full_width(smoke):
+    """The path checks run at the full-width shapes: the SFF canvas 1280^2
+    and its halves, 4 sections a group; the SP 1280^2, batch 2. Each
+    check's shape is also a timed row of phases 15 and 18b."""
+    for checks, n, sizes in ((smoke.SFF_CONV_CHECKS, 4, (1280, 640)),
+                             (smoke.DECONV_CHECKS, 4, (640, 320)),
+                             (smoke.SP_CONV_CHECKS, smoke.SP_BATCH, (1280, 640))):
+        rows = smoke.timing_rows(checks)
+        for c in checks:
+            assert c[0] == n and c[1] == c[2] and c[1] in sizes, c
+            assert (*c[:5], c[6]) in rows
