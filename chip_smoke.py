@@ -7,14 +7,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power limit
   2. build: compiles sstem_tpu_torch/csrc/*.cu with nvcc (prints ptxas output,
-     the build seconds, and registers and spills of the wgmma kernels)
-  3. sepconv kernel vs its plain PyTorch version on the same inputs
+     the build seconds, registers and spills of the Hopper designs, and any
+     wgmma serialization warning)
+  3. the sepconv forward's two designs (the one the shape picks, and the
+     simple one) vs its plain PyTorch version at every SEPCONV_CHECKS row
   4. warp kernel vs its plain PyTorch version on the same inputs
   5. pipeline on the card vs on the CPU (K=51, float32, TF32 off)
   6. full size: restore_stack_scanned on a 25 x 1250^2 stack, 12 damaged
      sections, chunk 4, K=51, ngf=32, in bfloat16 and in float32, with the
-     kernels' launch counts, ms/section and peak memory
-  7. kernel times beside their plain versions' (CUDA events)
+     kernels' launch counts and signatures, ms/section and peak memory
+  7. the sepconv forward at the SFF shapes (both designs) and the warp
+     kernel, beside their plain versions and bounds (CUDA events)
   8. sepconv backward kernel vs its plain PyTorch version on the same inputs
   9. one IFNet training step on the card vs on the CPU (K=51, 64^2, float32,
      TF32 off): loss and every parameter's gradient
@@ -23,25 +26,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      under the poly warmup/decay LR, float32 with TF32 off, a synthetic
      triplet tree of 16 x 320^2 made from the seed), then the step of
      ``build(cfg)`` timed: ms/step, steps/s, MP/s, peak memory, and the
-     sepconv launches per step, and 2 steps under torch.profiler (device
-     busy time, idle share, device time by kernel kind)
- 11. sepconv forward and backward kernels vs their plain versions at the
-     training shape, and their times (CUDA events)
+     sepconv launches and signatures per step, and 2 steps under
+     torch.profiler (device busy time, idle share, device time by kind)
+ 11. the sepconv forward (both designs) and backward kernels vs their plain
+     versions at the training shape, and their times (CUDA events)
  12. conv3x3, pool, deconv and head-tail kernels vs their plain versions at
      every conv3x3 and deconv signature the packed_conv=True SFF path
      launches at full width (SFF_CONV_CHECKS, DECONV_CHECKS) and at odd
-     sizes for the edges
+     sizes for the edges; the head tail's two designs at every
+     HEAD_TAIL_CHECKS row
  13. the packed_conv=True pipeline on the card vs on the CPU (K=51, bfloat16
      on both sides): NRMSE of each float output, uint8 level differences
  14. phase 6's workload in bfloat16 on the packed_conv=True path, with the
      head tails on cuDNN and on the head-tail kernel, beside the cuDNN path:
-     launch counts per group asserted, ms/section, peak memory, and one call
-     under torch.profiler each
+     launch counts per group asserted, signatures checked, ms/section, peak
+     memory, and one call under torch.profiler each
  15. every conv3x3 and deconv shape of the SFF packed path at full width
      (CUDA events): the design the kernel picks, the mma.sync design in the
      same call, the plain version, the bound, the bare cuDNN call and (conv)
      cuDNN with the epilogue as separate ops, and the launches per group;
-     then the pool and head-tail kernels beside theirs
+     then the pool, and the head tail (both designs) beside theirs
  16. the probe kernels (tile copy, gather, dynamic roll; exact) and conv3x3
      at every SP path signature (SP_CONV_CHECKS) vs their plain versions
  17. SPPipeline.restore on the card vs on the CPU (K=51, two quartets of
@@ -49,13 +53,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      bfloat16 on both sides
  18. full width SP: bench_sp.py's workload (6 quartets of 1250^2, batch 2,
      K=51, bfloat16) on the cuDNN and the packed path: launch counts per
-     batch asserted, ms/quartet, MP/s, peak memory, one run under
-     torch.profiler each; then every conv3x3 shape of the SP packed path
-     timed as in phase 15, and the SP pool
+     batch asserted, signatures checked, ms/quartet, MP/s, peak memory, one
+     run under torch.profiler each; then every conv3x3 shape of the SP
+     packed path timed as in phase 15, the SP pool, and the SP sepconv
+     with both designs
  19. the probes through their entry points (probe_dma_conv, probe_gather
-     --parity and --bench, micro_bench) with launch counts asserted, then
-     each probe kernel at the JAX probes' shapes beside its plain version,
-     its library call and its bound (CUDA events)
+     --parity and --bench, micro_bench) with launch counts asserted and
+     micro_bench's sepconv signature checked, then each probe kernel at the
+     JAX probes' shapes beside its plain version, its library call and its
+     bound (CUDA events; the sepconv with both designs)
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -107,18 +113,46 @@ def rand(shape, gen, scale=1.0, dtype=torch.float32):
     return (torch.rand(shape, generator=gen, device=DEV) * scale).to(dtype)
 
 
-def check_sepconv(n, c, h, w, k, image_dtype, maps_dtype, gen):
-    """Kernel vs plain on the same unit-range image and maps whose taps sum
-    to about 1 per pixel. Returns the max abs error."""
-    from sstem_tpu_torch.kernels import sepconv_planar, sepconv_planar_plain
+def sepconv_inputs(n, c, h, w, k, image, maps, gen):
+    """A unit-range padded image and maps whose taps sum to about 1 per
+    pixel, in the dtypes named (SEPCONV_CHECKS)."""
+    return (rand((n, c, h + k - 1, w + k - 1), gen, dtype=getattr(torch, image)),
+            rand((n, k, h, w), gen, 2.0 / k, getattr(torch, maps)),
+            rand((n, k, h, w), gen, 2.0 / k, getattr(torch, maps)))
 
-    image = rand((n, c, h + k - 1, w + k - 1), gen, dtype=image_dtype)
-    vert = rand((n, k, h, w), gen, 2.0 / k, maps_dtype)
-    horz = rand((n, k, h, w), gen, 2.0 / k, maps_dtype)
-    got = sepconv_planar(image, vert, horz)
-    want = sepconv_planar_plain(image, vert, horz)
-    label = f"sepconv {n}x{c}x{h}x{w} K={k} image={image_dtype} maps={maps_dtype}"
-    return assert_sepconv_close(label, got, want, (n, c, h, w))
+
+def check_sepconv(n, c, h, w, k, image, maps, gen):
+    """Both forward designs (the entry point that picks by shape, and the
+    simple design's) against the plain version on the same inputs. Returns
+    the max abs error of the design the shape picks."""
+    from sstem_tpu_torch.kernels import sepconv as sc
+
+    args = sepconv_inputs(n, c, h, w, k, image, maps, gen)
+    want = sc.sepconv_planar_plain(*args)
+    err = {}
+    for name, entry in sc.ENTRY_POINTS.items():
+        label = (f"sepconv {entry} (shape picks {sc.design(w)}) {n}x{c}x{h}x{w} "
+                 f"K={k} image={image} maps={maps}")
+        err[name] = assert_sepconv_close(label, sc.launch_entry(entry, *args),
+                                         want, (n, c, h, w))
+    return err[sc.design(w)]
+
+
+def time_sepconv(n, c, h, w, k, image, maps, gen, reps=10):
+    """The sepconv forward at one signature, by CUDA events: the design the
+    entry point picks (ms, design), the simple design in the same call
+    (simple_ms), the plain version and the bound. No single PyTorch call
+    computes it (library_ms None)."""
+    from sstem_tpu_torch.kernels import sepconv as sc
+
+    args = sepconv_inputs(n, c, h, w, k, image, maps, gen)
+    size = {"float32": 4, "bfloat16": 2}
+    t = timing(cuda_ms(lambda: sc.launch_entry("sstem_sepconv_fwd", *args), reps, 2),
+               cuda_ms(lambda: sc.sepconv_planar_plain(*args), 2), None,
+               sepconv_bound(n, c, h, w, k, size[image], size[maps], False))
+    t.update(design=sc.design(w), simple_ms=cuda_ms(
+        lambda: sc.launch_entry(sc.ENTRY_POINTS["simple"], *args), reps, 2))
+    return t
 
 
 def assert_sepconv_close(label, got, want, shape):
@@ -254,6 +288,44 @@ ODD_DECONV_CHECKS = (
 )
 
 
+# The sepconv forward's signatures (n, c, h, w, k, image dtype, maps dtype)
+# and the head tail's (n, hi, wi, cx, k) that the paths launch at full
+# width: the SFF restore in bfloat16 (both paths) and float32, 4 sections a
+# group, its fused head tails on the 640^2 features; the SP restore, batch
+# 2; the training step, 32 x 256^2; micro_bench. Then the remaining dtype
+# pair, K = 5 and 11, and odd sizes and channel counts that take the first
+# designs (sepconv W % 4 != 0; head tail Cx % 8 != 0) or the edges of the
+# new ones. Phases 3, 11 and 12 hold both designs against the plain version
+# at each; phases 6, 10, 14, 18 and 19a fail on a launched signature
+# missing here, and tests/test_torch_conv_shapes.py on a packed path's.
+SEPCONV_CHECKS = (
+    (4, 1, 1280, 1280, K, "bfloat16", "bfloat16"),
+    (4, 1, 1280, 1280, K, "float32", "float32"),
+    (2, 1, 1280, 1280, K, "bfloat16", "bfloat16"),
+    (32, 1, 256, 256, K, "float32", "float32"),
+    (1, 1, 1280, 1280, K, "float32", "float32"),
+    (4, 1, 1280, 1280, K, "float32", "bfloat16"),
+    (4, 1, 1280, 1280, K, "bfloat16", "float32"),
+    (2, 2, 64, 96, 5, "float32", "float32"),
+    (2, 3, 61, 48, 11, "float32", "float32"),
+    (2, 2, 64, 96, 11, "bfloat16", "bfloat16"),
+    (2, 3, 100, 180, K, "bfloat16", "bfloat16"),
+    (2, 3, 251, 179, K, "float32", "float32"),
+    (2, 3, 251, 179, K, "bfloat16", "bfloat16"),
+)
+HEAD_TAIL_CHECKS = (
+    (4, 640, 640, 64, K),
+    (2, 37, 52, 56, K), (1, 9, 4, 64, K), (2, 20, 40, 64, 56),
+    (2, 37, 53, K, K), (2, 37, 53, 64, K),
+)
+MAP_CHECKS = ({("sepconv", *c) for c in SEPCONV_CHECKS}
+              | {("head_tail", *c) for c in HEAD_TAIL_CHECKS})
+
+
+def dtype_name(dtype):
+    return str(dtype).removeprefix("torch.")
+
+
 def timing_rows(checks):
     """The distinct (n, h, w, cin, cout, residual) of a check list."""
     return list(dict.fromkeys((n, h, w, ci, co, r)
@@ -265,19 +337,43 @@ class KernelSignatures:
     deconv2x_fused call that models/serving.py makes while active, with
     the spatial shape, as a Counter of (kernel, n, h, w, cin, cout, act,
     residual). Residual: None, 'pre' or 'post' for conv3x3, the res_mode
-    for deconv2x."""
+    for deconv2x. The head tails of models/serving.py and the sepconvs of
+    models/serving.py, models/ifnet.py and tools/micro_bench.py go into
+    ``maps``, a Counter of
+    ('head_tail', n, hi, wi, cx, k) and ('sepconv', n, c, h, w, k, image
+    dtype, maps dtype), as the check lists write them."""
 
     def __init__(self):
         import collections
 
         self.calls = collections.Counter()
+        self.maps = collections.Counter()
 
     def __enter__(self):
-        from sstem_tpu_torch.models import serving
+        from sstem_tpu_torch.models import ifnet, serving
+        from sstem_tpu_torch.tools import micro_bench
 
         self._serving = serving
+        # the modules that call sepconv_planar by name
+        self._sep_sites = (serving, ifnet, micro_bench)
         self._orig = serving.conv3x3_fused, serving.deconv2x_fused
+        self._orig_tail = serving.head_tail
         conv, deconv = self._orig
+        tail, sep = serving.head_tail, serving.sepconv_planar
+
+        def tail_rec(x, w3, b3):
+            self.maps[("head_tail", *x.shape, w3.shape[3])] += 1
+            return tail(x, w3, b3)
+
+        def sep_rec(image, vertical, horizontal):
+            self.maps[("sepconv", *image.shape[:2], *vertical.shape[2:],
+                       vertical.shape[1], dtype_name(image.dtype),
+                       dtype_name(vertical.dtype))] += 1
+            return sep(image, vertical, horizontal)
+
+        serving.head_tail = tail_rec
+        for site in self._sep_sites:
+            site.sepconv_planar = sep_rec
 
         def conv_rec(x, w, scale, shift, act=None, residual=None,
                      residual_pre_affine=False):
@@ -296,12 +392,29 @@ class KernelSignatures:
         return self
 
     def __exit__(self, *exc):
+        from sstem_tpu_torch.kernels import sepconv_planar
+
         self._serving.conv3x3_fused, self._serving.deconv2x_fused = self._orig
+        self._serving.head_tail = self._orig_tail
+        for site in self._sep_sites:
+            site.sepconv_planar = sepconv_planar
         return False
 
     def channels(self):
         """{(kernel, cin, cout, act, residual)} of the recorded calls."""
         return {(k[0], *k[4:]) for k in self.calls}
+
+    def map_channels(self):
+        """{('head_tail', cx, k)} and {('sepconv', c, k, image dtype, maps
+        dtype)} of the recorded map-kernel calls."""
+        return {map_channel(k) for k in self.maps}
+
+
+def map_channel(sig):
+    """A head-tail or sepconv signature without its spatial shape."""
+    if sig[0] == "head_tail":
+        return sig[0], *sig[4:]
+    return sig[0], sig[2], *sig[5:]
 
 
 def check_channels(checks, kernel="conv3x3"):
@@ -325,8 +438,8 @@ def full_size_run(stack, ids, dtype, path="cudnn", chunk=4, profile=False,
                   **options):
     """The bench workload in one dtype on one path. Returns (the kernels'
     launch counts during one restore_stack_scanned call, ms/section, the
-    conv3x3 and deconv signatures of that call: KernelSignatures.calls);
-    with ``profile``, one more call runs under torch.profiler."""
+    kernel signatures of that call: KernelSignatures); with ``profile``,
+    one more call runs under torch.profiler."""
     wrappers = counted_kernels()
     name = f"{str(dtype).removeprefix('torch.')} {path}"
     pipe = build_pipeline("cuda", dtype, **options)
@@ -389,16 +502,20 @@ def full_size_run(stack, ids, dtype, path="cudnn", chunk=4, profile=False,
                      1, len(ids), "section", f"restore_{path}_profile.json")
     del pipe
     torch.cuda.empty_cache()
-    return launches, ms, sig.calls
+    return launches, ms, sig
 
 
-def report_signatures(label, sig, units, unit, checked):
+def report_signatures(label, sig, units, unit, checked=frozenset()):
     """Prints each recorded kernel signature with its calls per unit and
-    fails when one is not in the check lists (``checked``)."""
+    fails when one is not in the check lists: a conv3x3 or deconv2x
+    channel signature not in ``checked``, a head-tail or sepconv signature
+    not in HEAD_TAIL_CHECKS or SEPCONV_CHECKS."""
     for key, n in sorted(sig.calls.items(), key=str):
         say(f"{label} {key[0]} {key[1]}x{key[2]}x{key[3]} {key[4]}->{key[5]} "
             f"act={key[6]} res={key[7]} launches per {unit}", n / units)
-    missing = sig.channels() - checked
+    for key, n in sorted(sig.maps.items(), key=str):
+        say(f"{label} {key} launches per {unit}", n / units)
+    missing = (sig.channels() - checked) | (set(sig.maps) - MAP_CHECKS)
     assert not missing, f"{label}: signatures missing from the checks: {missing}"
 
 
@@ -670,11 +787,13 @@ def full_width_training(steps=3, timed=10, warm=3):
     sepconv_planar.launches = 0
     sepconv_planar_bwd.launches = 0
     times = []
-    for _ in range(timed):
-        t0 = time.perf_counter()
-        state, metrics = train_step(state, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    with KernelSignatures() as sig:
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    report_signatures("train step", sig, timed, "step")
     assert sepconv_planar.launches == 2 * timed, sepconv_planar.launches
     assert sepconv_planar_bwd.launches == 2 * timed, sepconv_planar_bwd.launches
     say("train step sepconv_fwd launches per step", sepconv_planar.launches / timed)
@@ -813,27 +932,42 @@ def head_tail_inputs(n, hi, wi, cx, k, gen):
     return x, w3, b3
 
 
-def check_head_tail(n, hi, wi, cx, k, gen):
-    """Within 2e-2 of the max |value| (the hardware gate's tolerance,
-    TPU_CHECKS.json head_tail_fused_640_k51): the kernel and F.interpolate
-    may round an upsampled value to different bf16 neighbours."""
-    from sstem_tpu_torch.kernels import head_tail, head_tail_plain
+def head_tail_module():
+    """kernels/head_tail.py (the package's ``head_tail`` name is the
+    wrapper function)."""
+    import importlib
 
+    return importlib.import_module("sstem_tpu_torch.kernels.head_tail")
+
+
+def check_head_tail(n, hi, wi, cx, k, gen):
+    """Both designs (the entry point that picks by shape, and the mma.sync
+    design's) against the plain version, within 2e-2 of the max |value|
+    (the hardware gate's tolerance, TPU_CHECKS.json head_tail_fused_640_k51):
+    the kernel and F.interpolate may round an upsampled value to different
+    bf16 neighbours. Returns the max abs error of the design the shape
+    picks."""
+    ht = head_tail_module()
     x, w3, b3 = head_tail_inputs(n, hi, wi, cx, k, gen)
-    got = head_tail(x, w3, b3)
-    want = head_tail_plain(x, w3, b3)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape == (n, k, 2 * hi, 2 * wi)
-    err = (got.float() - want.float()).abs()
-    rel = float(err.max()) / float(want.float().abs().max())
-    label = f"head_tail {n}x{hi}x{wi}x{cx} K={k}"
-    say(f"{label} max_abs_err", float(err.max()))
-    say(f"{label} max_err / max|value|", rel)
-    say(f"{label} share of outputs off by more than 1 bf16 ulp", float(
-        (err > bf16_ulp(torch.maximum(got.float().abs(), want.float().abs())))
-        .float().mean()))
-    assert rel <= 2e-2, f"{label}: kernel disagrees with the plain version"
-    return float(err.max())
+    want = ht.head_tail_plain(x, w3, b3)
+    errs = {}
+    for name, entry in ht.ENTRY_POINTS.items():
+        got = ht.launch_entry(entry, x, w3, b3)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (n, k, 2 * hi, 2 * wi)
+        err = (got.float() - want.float()).abs()
+        rel = float(err.max()) / float(want.float().abs().max())
+        label = (f"head_tail {entry} (shape picks {ht.design(wi, cx, k)}) "
+                 f"{n}x{hi}x{wi}x{cx} K={k}")
+        say(f"{label} max_abs_err", float(err.max()))
+        say(f"{label} max_err / max|value|", rel)
+        say(f"{label} share of outputs off by more than 1 bf16 ulp", float(
+            (err > bf16_ulp(torch.maximum(got.float().abs(),
+                                          want.float().abs())))
+            .float().mean()))
+        assert rel <= 2e-2, f"{label}: kernel disagrees with the plain version"
+        errs[name] = float(err.max())
+    return errs[ht.design(wi, cx, k)]
 
 
 # NRMSE limits of the packed path, card vs CPU: both round to bf16 at the
@@ -865,8 +999,8 @@ def compare_packed(gpu_sec, cpu_sec, gpu, cpu, ids):
 
 
 def say_timing(name, t):
-    for key in ("design", "ms", "mma_ms", "plain_ms", "library_ms",
-                "cudnn_epilogue_ms", "launches_per_unit"):
+    for key in ("design", "ms", "mma_ms", "simple_ms", "plain_ms",
+                "library_ms", "cudnn_epilogue_ms", "launches_per_unit"):
         if key in t:
             say(f"{name} {key}", t[key])
     say(f"{name} bound_ms ({t['bound_by']})", t["bound_ms"])
@@ -975,16 +1109,19 @@ def time_deconv_rows(rows, gen, calls, units):
     return out
 
 
-def time_new_kernels(gen, calls, units):
+def time_new_kernels(gen, calls, maps, units):
     """Phase 15: conv3x3 and deconv2x at every full-width shape of the SFF
     packed path (time_conv_rows; ``calls``: the packed path's recorded
     signatures over ``units`` groups), then the pool and the head tail
     beside their plain versions, one library call for the same work and
-    their bounds. Returns {name: timing dict}."""
+    their bounds; the head tail with both designs, and its launches per
+    group from the fused path's recorded ``maps``. Returns {name: timing
+    dict}."""
     import torch.nn.functional as F
 
-    from sstem_tpu_torch.kernels import (
-        head_tail, head_tail_plain, pool2x, pool2x_plain)
+    from sstem_tpu_torch.kernels import pool2x, pool2x_plain
+
+    ht = head_tail_module()
 
     out = time_conv_rows(timing_rows(SFF_CONV_CHECKS), gen, calls, units)
     out.update(time_deconv_rows(timing_rows(DECONV_CHECKS), gen, calls, units))
@@ -1008,10 +1145,15 @@ def time_new_kernels(gen, calls, units):
 
     nbytes = 2 * (4 * 640 * 640 * 64 + 9 * K * K + 4 * K * 1280 * 1280) + 4 * K
     flop = 2 * 4 * 1280 * 1280 * K * K * 9
-    out["head_tail[K51@4x640^2]"] = timing(
-        cuda_ms(lambda: head_tail(x, w3, b3), 10, 2),
-        cuda_ms(lambda: head_tail_plain(x, w3, b3), 3),
+    t = timing(
+        cuda_ms(lambda: ht.launch_entry("sstem_head_tail", x, w3, b3), 10, 2),
+        cuda_ms(lambda: ht.head_tail_plain(x, w3, b3), 3),
         cuda_ms(library, 10, 2), roofline(nbytes, flop, BF16_FLOP_PER_S))
+    t.update(design=ht.design(640, 64, K),
+             mma_ms=cuda_ms(lambda: ht.launch_entry(ht.ENTRY_POINTS["mma"], x,
+                                                    w3, b3), 10, 2),
+             launches_per_unit=maps[("head_tail", 4, 640, 640, 64, K)] / units)
+    out["head_tail[K51@4x640^2]"] = t
     del x
     for name in ("pool2x[max]", "pool2x[avg]", "head_tail[K51@4x640^2]"):
         say_timing(name, out[name])
@@ -1047,9 +1189,7 @@ def packed_phases(gen, stack, ids):
             check_pool(2, 37, 53, K, "avg", gen)),
         "deconv2x_fused": max(check_deconv(*c, gen)
                               for c in DECONV_CHECKS + ODD_DECONV_CHECKS),
-        "head_tail": max(
-            check_head_tail(4, 640, 640, 64, K, gen),
-            check_head_tail(2, 37, 53, K, K, gen)),
+        "head_tail": max(check_head_tail(*c, gen) for c in HEAD_TAIL_CHECKS),
     }
 
     phase("13 packed path card vs cpu (K=51, bfloat16, 150 x 170)")
@@ -1074,8 +1214,9 @@ def packed_phases(gen, stack, ids):
     out["launches"] = {k: v[0] for k, v in runs.items()}
 
     phase("15 the kernels' times at full width (CUDA events)")
-    _, _, calls = runs["packed"]
-    out["times"] = time_new_kernels(gen, calls, -(-len(ids) // 4))
+    out["times"] = time_new_kernels(gen, runs["packed"][2].calls,
+                                    runs["packed_fused_tail"][2].maps,
+                                    -(-len(ids) // 4))
     return out
 
 
@@ -1233,7 +1374,7 @@ SP_QUARTETS, SP_BATCH, SP_SIZE = 6, 2, 1250
 def sp_full_width(path, stack, masks):
     """Phase 18 on one path: the workload bench_sp.py:40-122 defines (6
     quartets of 1250^2, batch 2, K=51, bf16). Returns (launch counts of one
-    run, ms per quartet, KernelSignatures.calls of that run, batches)."""
+    run, ms per quartet, the KernelSignatures of that run, batches)."""
     from sstem_tpu_torch import config
 
     wrappers = counted_kernels()
@@ -1286,7 +1427,7 @@ def sp_full_width(path, stack, masks):
     profile_runs(name, run, 1, SP_QUARTETS, "quartet", f"sp_{path}_profile.json")
     del pipe
     torch.cuda.empty_cache()
-    return launches, ms, sig.calls, len(batches)
+    return launches, ms, sig, len(batches)
 
 
 def check_exact(label, got, want):
@@ -1365,12 +1506,14 @@ def run_probes():
     wrappers = probe_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-    assert probe_dma_conv.main([]) == 0
-    assert probe_gather.main(["--parity"]) == 0
-    assert probe_gather.main(["--bench"]) == 0
-    assert micro_bench.main([]) == 0
-    torch.cuda.synchronize()
+    with KernelSignatures() as sig:
+        assert probe_dma_conv.main([]) == 0
+        assert probe_gather.main(["--parity"]) == 0
+        assert probe_gather.main(["--bench"]) == 0
+        assert micro_bench.main([]) == 0
+        torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in wrappers.items()}
+    report_signatures("probes", sig, 1, "run")
     for k, n in launches.items():
         say(f"probes {k} launches", n)
     assert launches == PROBE_LAUNCHES, (launches, PROBE_LAUNCHES)
@@ -1389,6 +1532,7 @@ def time_probe_kernels(gen, err):
         conv3x3_fused, conv3x3_fused_plain, fold_affine, roll_dynamic,
         roll_dynamic_plain, sepconv_planar, sepconv_planar_plain,
         take_along_axis, take_along_axis_plain, tile_copy, tile_copy_plain)
+    from sstem_tpu_torch.kernels import sepconv as sc
     from sstem_tpu_torch.ops import replication_pad_2d
     from sstem_tpu_torch.tools import probe_dma_conv, probe_gather
 
@@ -1441,26 +1585,35 @@ def time_probe_kernels(gen, err):
         "sepconv micro_bench 1x1x1280x1280 K=51 f32",
         sepconv_planar(padded, v, h), sepconv_planar_plain(padded, v, h),
         (1, 1, 1280, 1280))
-    out["sepconv_fwd[micro_bench 1x1x1280^2 f32]"] = timing(
+    t = timing(
         cuda_ms(lambda: sepconv_planar(padded, v, h), 10, 2),
         cuda_ms(lambda: sepconv_planar_plain(padded, v, h), 2),
         None, sepconv_bound(1, 1, 1280, 1280, K, 4, 4, False))
+    t.update(design=sc.design(1280), simple_ms=cuda_ms(
+        lambda: sc.launch_entry(sc.ENTRY_POINTS["simple"], padded, v, h), 10, 2))
+    out["sepconv_fwd[micro_bench 1x1x1280^2 f32]"] = t
     del image, v, h, padded
     for name, t in out.items():
         say_timing(name, t)
     return out
 
 
-def time_sp_kernels(gen, calls, batches):
+def time_sp_kernels(gen, sig, batches):
     """Phase 18b: conv3x3 at every full-width shape of the SP packed path
-    (time_conv_rows; ``calls``: the packed path's recorded signatures over
-    ``batches`` batches) and the SP pool beside its plain version,
-    F.max_pool2d and its bound."""
+    (time_conv_rows; ``sig``: the packed path's recorded signatures over
+    ``batches`` batches), the SP pool beside its plain version,
+    F.max_pool2d and its bound, and the SP sepconv with both designs."""
     import torch.nn.functional as F
 
     from sstem_tpu_torch.kernels import pool2x, pool2x_plain
 
-    out = time_conv_rows(timing_rows(SP_CONV_CHECKS), gen, calls, batches)
+    out = time_conv_rows(timing_rows(SP_CONV_CHECKS), gen, sig.calls, batches)
+    name = f"sepconv_fwd[sp {SP_BATCH}x1x1280^2 bf16]"
+    out[name] = time_sepconv(SP_BATCH, 1, 1280, 1280, K, "bfloat16",
+                             "bfloat16", gen)
+    out[name]["launches_per_unit"] = sig.maps[
+        ("sepconv", SP_BATCH, 1, 1280, 1280, K, "bfloat16", "bfloat16")] / batches
+    say_timing(name, out[name])
     x = randn((SP_BATCH, 1280, 1280, 64), gen)
     out["pool2x[max C64@2x1280^2]"] = timing(
         cuda_ms(lambda: pool2x(x, "max"), 50, 3),
@@ -1497,8 +1650,8 @@ def sp_and_probe_phases(gen):
     res["sp_launches"] = runs["packed"][0]
     del stack, masks
     torch.cuda.empty_cache()
-    _, _, calls, batches = runs["packed"]
-    res["sp_times"] = time_sp_kernels(gen, calls, batches)
+    _, _, sig, batches = runs["packed"]
+    res["sp_times"] = time_sp_kernels(gen, sig, batches)
 
     phase("19 the probes at their JAX shapes (CUDA events)")
     res["probe_launches"] = run_probes()
@@ -1522,6 +1675,8 @@ SP_KERNELS = (
      "tools/probe_gather.py:156", "probe_launches"),
     ("sepconv_fwd[micro_bench", "sstem_tpu_torch/csrc/sepconv_fwd.cu",
      "tools/micro_bench.py:69", "probe_launches"),
+    ("sepconv_fwd[sp", "sstem_tpu_torch/csrc/sepconv_fwd.cu",
+     "sstem_tpu/kernels/sepconv.py:240", "sp_launches"),
 )
 
 
@@ -1538,7 +1693,8 @@ def sp_kernel_entries(res):
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": res[where][kernel],
-            "max_abs_err": res["err"].get(kernel, 0.0), **t})
+            "max_abs_err": res["err"].get(prefix, res["err"].get(kernel, 0.0)),
+            **t})
     return entries
 
 
@@ -1572,16 +1728,32 @@ def new_kernel_entries(res):
 
 
 def ptxas_summary(log):
-    """One line per kernel of the wgmma design from the build's ptxas -v
-    output: registers, spills, static shared memory (the dynamic shared
-    memory of each instantiation is csrc's Smem plan, PERF.md)."""
+    """One line per kernel of the Hopper designs (conv3x3 and deconv wgmma,
+    head-tail wgmma, sepconv blocked) from the build's ptxas -v output:
+    registers, spills, static shared memory (the dynamic shared memory of
+    each wgmma instantiation is its source's plan, PERF.md), and every
+    warning that ptxas serialized a kernel's wgmmas."""
     import re
 
+    types = {"13__nv_bfloat16": "bf16", "S2_": "bf16", "f": "f32"}
     name = None
     for line in log.splitlines():
+        if "C7520" in line:
+            say("ptxas wgmma serialized", line.split("function", 1)[-1].strip())
         if "Compiling entry function" in line:
             m = re.search(r"(conv3x3|deconv2x)_wgmma_kernelILi(\d+)ELi(\d+)", line)
-            name = f"{m.group(1)} wgmma Cin_p={m.group(2)} N={m.group(3)}" if m else None
+            b = re.search(r"sepconv_fwd_blocked_kernelILi(\d+)E(\w+?)EEv", line)
+            if m:
+                name = f"{m.group(1)} wgmma Cin_p={m.group(2)} N={m.group(3)}"
+            elif b:
+                dts = [types[t] for t in re.findall(r"13__nv_bfloat16|S2_|f",
+                                                     b.group(2))]
+                k = "any" if b.group(1) == "0" else b.group(1)
+                name = f"sepconv blocked K={k} image,maps={dts}"
+            elif "head_tail_wgmma_kernel" in line:
+                name = "head_tail wgmma"
+            else:
+                name = None
         elif name and ("spill" in line or "Used" in line):
             say(f"ptxas {name}", line.split(":", 1)[-1].strip())
 
@@ -1604,10 +1776,8 @@ def main():
     from sstem_tpu_torch.data import synth_stack
     from sstem_tpu_torch.kernels import (
         _build,
-        sepconv_planar,
         sepconv_planar_bwd,
         sepconv_planar_bwd_plain,
-        sepconv_planar_plain,
         serving_warp,
     )
     from sstem_tpu_torch.ops.flow import fold_flows
@@ -1626,16 +1796,9 @@ def main():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    phase("3 sepconv kernel vs plain")
+    phase("3 sepconv kernel vs plain, both designs, every SEPCONV_CHECKS row")
     f32, bf16 = config.PARITY_DTYPE, config.SERVING_DTYPE
-    sep_err = {
-        "f32": check_sepconv(4, 1, 1280, 1280, K, f32, f32, gen),
-        "f32_image_bf16_maps": check_sepconv(4, 1, 1280, 1280, K, f32, bf16, gen),
-        "bf16": check_sepconv(4, 1, 1280, 1280, K, bf16, bf16, gen),
-    }
-    check_sepconv(2, 3, 251, 179, K, f32, f32, gen)
-    check_sepconv(2, 3, 251, 179, K, bf16, bf16, gen)
-    check_sepconv(2, 2, 64, 96, 5, f32, f32, gen)
+    sep_err = {c: check_sepconv(*c, gen) for c in SEPCONV_CHECKS}
 
     phase("4 warp kernel vs plain")
     im = rand((4, 1280, 1280, 1), gen)
@@ -1661,16 +1824,9 @@ def main():
 
     phase("7 kernel times (CUDA events)")
     times = {}
-    for name, dt in (("f32", f32), ("bf16", bf16)):
-        image = rand((4, 1, 1280 + K - 1, 1280 + K - 1), gen, dtype=dt)
-        vert = rand((4, K, 1280, 1280), gen, 2.0 / K, dt)
-        horz = rand((4, K, 1280, 1280), gen, 2.0 / K, dt)
-        ms = cuda_ms(lambda: sepconv_planar(image, vert, horz), reps=10)
-        plain = cuda_ms(lambda: sepconv_planar_plain(image, vert, horz), reps=3)
-        say(f"sepconv 4x1x1280x1280 K=51 {name} kernel_ms", ms)
-        say(f"sepconv 4x1x1280x1280 K=51 {name} plain_ms", plain)
-        times[f"sepconv_{name}"] = (ms, plain)
-        del image, vert, horz
+    for name, dt in (("f32", "float32"), ("bf16", "bfloat16")):
+        times[f"sepconv_{name}"] = time_sepconv(4, 1, 1280, 1280, K, dt, dt, gen)
+        say_timing(f"sepconv_fwd[{name} 4x1x1280^2]", times[f"sepconv_{name}"])
     ms = cuda_ms(lambda: serving_warp(im, fold), reps=20)
     plain = cuda_ms(lambda: spatial_transform(im, fold), reps=5)
     say("warp 4x1280x1280 fold kernel_ms", ms)
@@ -1692,27 +1848,25 @@ def main():
 
     phase("11 sepconv kernels vs plain and their times at the training shape")
     n, hw = TRAIN_BATCH, TRAIN_PATCH
+    fwd_train_err = check_sepconv(n, 1, hw, hw, K, "float32", "float32", gen)
+    times["sepconv_fwd_train"] = time_sepconv(n, 1, hw, hw, K, "float32",
+                                              "float32", gen, reps=20)
+    say_timing(f"sepconv_fwd[train {n}x1x{hw}^2 f32]", times["sepconv_fwd_train"])
     image = rand((n, 1, hw + K - 1, hw + K - 1), gen)
     vert = rand((n, K, hw, hw), gen, 2.0 / K)
     horz = rand((n, K, hw, hw), gen, 2.0 / K)
     grad = rand((n, 1, hw, hw), gen) - 0.5
     label = f"{n}x1x{hw}x{hw} K=51 f32"
-    fwd_train_err = assert_sepconv_close(
-        f"sepconv {label}", sepconv_planar(image, vert, horz),
-        sepconv_planar_plain(image, vert, horz), (n, 1, hw, hw))
     bwd_err = max(bwd_err, assert_sepconv_bwd_close(
         f"sepconv_bwd {label}", sepconv_planar_bwd(image, vert, horz, grad),
         sepconv_planar_bwd_plain(image, vert, horz, grad), (n, K, hw, hw)))
-    for name, fn, plain in (
-            ("sepconv_fwd_train", lambda: sepconv_planar(image, vert, horz),
-             lambda: sepconv_planar_plain(image, vert, horz)),
-            ("sepconv_bwd", lambda: sepconv_planar_bwd(image, vert, horz, grad),
-             lambda: sepconv_planar_bwd_plain(image, vert, horz, grad))):
-        ms = cuda_ms(fn, reps=20, warmup=3)
-        plain_ms = cuda_ms(plain, reps=2)
-        say(f"{name} {label} kernel_ms", ms)
-        say(f"{name} {label} plain_ms", plain_ms)
-        times[name] = (ms, plain_ms)
+    ms = cuda_ms(lambda: sepconv_planar_bwd(image, vert, horz, grad), reps=20,
+                 warmup=3)
+    plain_ms = cuda_ms(
+        lambda: sepconv_planar_bwd_plain(image, vert, horz, grad), reps=2)
+    say(f"sepconv_bwd {label} kernel_ms", ms)
+    say(f"sepconv_bwd {label} plain_ms", plain_ms)
+    times["sepconv_bwd"] = (ms, plain_ms)
     del image, vert, horz, grad
 
     packed = packed_phases(gen, stack, ids)
@@ -1720,18 +1874,14 @@ def main():
     sp = sp_and_probe_phases(gen)
 
     kernels = []
-    for name, dt in (("f32", f32), ("bf16", bf16)):
-        nbytes = 4 if dt == f32 else 2
-        bound, by = sepconv_bound(4, 1, 1280, 1280, K, nbytes, nbytes, False)
+    for name, dt in (("f32", "float32"), ("bf16", "bfloat16")):
         kernels.append({
             "name": f"sepconv_fwd[{name}]", "route": "cuda",
             "source": "sstem_tpu_torch/csrc/sepconv_fwd.cu",
             "replaces": "sstem_tpu/kernels/sepconv.py:240",
             "launches": launches[name]["sepconv_fwd"],
-            "max_abs_err": sep_err[name],
-            "ms": times[f"sepconv_{name}"][0],
-            "plain_ms": times[f"sepconv_{name}"][1],
-            "bound_ms": bound, "bound_by": by, "library_ms": None})
+            "max_abs_err": sep_err[(4, 1, 1280, 1280, K, dt, dt)],
+            **times[f"sepconv_{name}"]})
     warp_bytes = 4 * 1280 * 1280 * (4 + 8 + 4)  # im, flow in; out
     kernels.append({
         "name": "warp_bilinear", "route": "cuda",
@@ -1742,16 +1892,12 @@ def main():
         "plain_ms": times["warp"][1],
         "bound_ms": warp_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None})
-    bound, by = sepconv_bound(n, 1, hw, hw, K, 4, 4, False)
     kernels.append({
         "name": "sepconv_fwd[train_f32]", "route": "cuda",
         "source": "sstem_tpu_torch/csrc/sepconv_fwd.cu",
         "replaces": "sstem_tpu/kernels/sepconv.py:240",
         "launches": train_launches["sepconv_fwd"],
-        "max_abs_err": fwd_train_err,
-        "ms": times["sepconv_fwd_train"][0],
-        "plain_ms": times["sepconv_fwd_train"][1],
-        "bound_ms": bound, "bound_by": by, "library_ms": None})
+        "max_abs_err": fwd_train_err, **times["sepconv_fwd_train"]})
     bound, by = sepconv_bound(n, 1, hw, hw, K, 4, 4, True)
     kernels.append({
         "name": "sepconv_bwd", "route": "cuda",
@@ -1762,6 +1908,8 @@ def main():
         "ms": times["sepconv_bwd"][0], "plain_ms": times["sepconv_bwd"][1],
         "bound_ms": bound, "bound_by": by, "library_ms": None})
     kernels += new_kernel_entries(packed)
+    sp["err"]["sepconv_fwd[sp"] = sep_err[(SP_BATCH, 1, 1280, 1280, K,
+                                           "bfloat16", "bfloat16")]
     kernels += sp_kernel_entries(sp)
     for kern in kernels:
         say(f"{kern['name']} bound_ms ({kern['bound_by']})", kern["bound_ms"])

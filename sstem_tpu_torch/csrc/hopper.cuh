@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's implicit-GEMM kernels
-// (conv3x3_fused.cu, deconv2x_fused.cu): mbarriers, TMA loads and stores
-// and their tensor maps, cp.async, the wgmma shared-memory descriptor and
-// fence / commit / wait wrappers, and the warp-specialized mainloop the two
-// kernels share.
+// (conv3x3_fused.cu, deconv2x_fused.cu, head_tail.cu; sepconv_fwd.cu takes
+// its cp.async): mbarriers, TMA loads and stores and their tensor maps,
+// cp.async, the wgmma shared-memory descriptor and fence / commit / wait
+// wrappers, and the warp-specialized mainloop of the two convolutions.
 //
 // Layouts (bf16; the wgmma operands in the "no swizzle" K-major canonical
 // layout, whose 8 x 16-byte core matrices are 128 contiguous bytes):
@@ -82,6 +82,18 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool fill) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+// cp.async.ca.shared.global [dst], [src], BYTES, src_size; -- 4, 8 or 16
+// bytes from global to shared through L1; fill false writes zeros and
+// reads nothing.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src,
+                                            bool fill) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async size");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(BYTES), "r"(fill ? BYTES : 0)
                : "memory");
 }
 
@@ -205,6 +217,20 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[16], uint64_t desc_a,
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 56, f32) += A (64 x 16) . B (16 x 56), both bf16 in shared
+// memory, K-major, through descriptors (the head tail's K = 51 outputs):
+//   wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16
+//       {d0..d27}, desc_a, desc_b, p (scale-d = 1), 1, 1, 0, 0;
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[28], uint64_t desc_a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, %28, %29, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 

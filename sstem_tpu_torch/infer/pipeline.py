@@ -152,9 +152,11 @@ class SFFPipeline:
         return interp, pred[:, 0].float(), warped.mean(-1), flow
 
     @torch.inference_mode()
-    def interpolate(self, prev_imgs, next_imgs):
+    def interpolate(self, prev_imgs, next_imgs, clip=True):
         """Interpolate sections from gray uint8 neighbours (N, H, W);
-        returns (N, H, W) in 0..1 on the device."""
+        returns (N, H, W) on the device, clamped to 0..1 unless ``clip`` is
+        False (the reference interp inference casts pred * 255 to uint8
+        without clipping)."""
         if self.packed_conv:
             x = torch.stack([self._to01(prev_imgs), self._to01(next_imgs)], -1)
         else:
@@ -170,7 +172,7 @@ class SFFPipeline:
             pred = self.interp_model(x.permute(0, 3, 1, 2))[:, 0, :h, :w]
         if self.pad:
             pred = pred[:, self.pad:-self.pad, self.pad:-self.pad]
-        return pred.clamp(0.0, 1.0)
+        return pred.clamp(0.0, 1.0) if clip else pred
 
     @torch.inference_mode()
     def restore(self, degraded_imgs, interp_imgs):
@@ -236,7 +238,7 @@ class SFFPipeline:
     def _restore_group(self, stack_p, grp):
         """One group on the device: neighbour gather, restore, stitch and
         quantization. Returns uint8 (B, Hp, Wp, 4) [interp, fused, warped,
-        stitch] and float32 flow (B, Hp, Wp, 2)."""
+        stitch] and float32 flow (B, Hp, Wp, 2), both on the device."""
         ix = torch.tensor(grp, device=self.device)
         x3 = torch.stack([stack_p[ix - 1], stack_p[ix + 1], stack_p[ix]],
                          dim=1).float() / 255.0
@@ -249,10 +251,12 @@ class SFFPipeline:
         return imgs.to(torch.uint8), flow
 
     @torch.inference_mode()
-    def restore_stack_scanned(self, stack, damaged_ids, chunk=4):
+    def restore_stack_scanned(self, stack, damaged_ids, chunk=4,
+                              want_flow=True):
         """``restore_stack`` in groups of ``chunk`` sections, quantized on
         the device: one host->device copy of the edge-padded stack, and one
-        device->host copy of uint8 images (and flow) per group.
+        device->host copy of uint8 images (and, with ``want_flow``, of the
+        float32 flow) per group.
 
         The last group is filled to ``chunk`` from the end of the id list
         (or by repeating its last id) and duplicates are dropped from the
@@ -262,8 +266,9 @@ class SFFPipeline:
         keeps the network's interp on the padded canvas. TEST.pad is not
         supported here; use ``restore_stack``.
 
-        Returns {id: {'interp', 'fused', 'warped', 'stitch', 'flow'}} with
-        numpy uint8 images and float32 flow.
+        Returns {id: {'interp', 'fused', 'warped', 'stitch'[, 'flow']}} with
+        numpy uint8 images and float32 flow; without ``want_flow`` the flow
+        stays on the device and is not returned.
         """
         if self.pad:
             raise ValueError("restore_stack_scanned does not support "
@@ -286,15 +291,17 @@ class SFFPipeline:
         for grp in groups:
             imgs, flow = self._restore_group(dev_stack, grp)
             imgs = imgs[:, :h, :w].cpu().numpy()
-            flow = flow[:, :h, :w].cpu().numpy()
+            if want_flow:
+                flow = flow[:, :h, :w].cpu().numpy()
             for j, i in enumerate(grp):
                 if i in results:
                     continue
                 results[i] = {"interp": imgs[j, ..., 0],
                               "fused": imgs[j, ..., 1],
                               "warped": imgs[j, ..., 2],
-                              "stitch": imgs[j, ..., 3],
-                              "flow": flow[j]}
+                              "stitch": imgs[j, ..., 3]}
+                if want_flow:
+                    results[i]["flow"] = flow[j]
         return results
 
 

@@ -39,8 +39,10 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes (pointers and the stream as void*)
 _ENTRY_POINTS = {
     # image, vertical, horizontal, out, n, c, h, w, k,
-    # image_bf16, maps_bf16, stream
+    # image_bf16, maps_bf16, stream (_simple: the first design at any shape)
     "sstem_sepconv_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sstem_sepconv_fwd_simple": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _P],
     # image, vertical, horizontal, grad, dvertical, dhorizontal, n, c, h, w,
     # k, image_bf16, maps_bf16, stream
     "sstem_sepconv_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -55,8 +57,10 @@ _ENTRY_POINTS = {
     "sstem_deconv2x_fused_mma": [_P] * 6 + [_I] * 7 + [_P],
     # x, out, n, h, w, c, is_max, stream
     "sstem_pool2x": [_P, _P, _I, _I, _I, _I, _I, _P],
-    # x, w, bias, out, n, hi, wi, cx, cin, k, stream
+    # x, w, bias, out, n, hi, wi, cx, cin, k, stream (_mma: the mma.sync
+    # design at any shape)
     "sstem_head_tail": [_P] * 4 + [_I] * 6 + [_P],
+    "sstem_head_tail_mma": [_P] * 4 + [_I] * 6 + [_P],
     # x, out, total bytes, slab bytes, stream
     "sstem_probe_copy": [_P, _P, _L, _L, _P],
     # src, idx, out, rows, cols, axis, stream

@@ -13,6 +13,13 @@ phase-planar output (and its ``(w // 2) % 128 == 0`` eligibility test) are
 TPU layouts and are not ported: any half-resolution size is taken. CUDA
 tensors go through ``csrc/head_tail.cu``; CPU tensors through
 ``head_tail_plain``.
+
+The CUDA kernel has two designs, which the C entry point picks by shape
+(``design``), never as a fallback: the Hopper one (``wgmma``: the
+half-resolution tile staged by TMA, the upsample in shared memory, wgmma
+with N = 56, planar rows out by TMA stores) where Cx is a multiple of 8, Wi
+a multiple of 4 and K at most 56, which are the fused path's heads, and the
+``mma.sync`` one of the first port for the rest.
 """
 
 import torch
@@ -21,6 +28,21 @@ import torch.nn.functional as F
 from sstem_tpu_torch.kernels import _build
 
 MAX_CHANNELS = 64
+# the wgmma design's shapes, as csrc/head_tail.cu picks them
+WGMMA_CX_MULTIPLE, WGMMA_WI_MULTIPLE, WGMMA_MAX_K = 8, 4, 56
+# the C entry point of each design ("sstem_head_tail" picks by shape)
+ENTRY_POINTS = {"wgmma": "sstem_head_tail", "mma": "sstem_head_tail_mma"}
+
+
+def design(wi, cx, k):
+    """The kernel design that serves half-resolution width ``wi``, ``cx``
+    feature channels and ``k`` outputs: 'wgmma' or 'mma' (the same rule as
+    the C entry point's, for the 16-byte aligned tensors the wrapper
+    takes)."""
+    if (cx % WGMMA_CX_MULTIPLE == 0 and wi % WGMMA_WI_MULTIPLE == 0
+            and k <= WGMMA_MAX_K):
+        return "wgmma"
+    return "mma"
 
 
 def head_tail_plain(x, w3, b3):
@@ -65,15 +87,25 @@ def head_tail(x, w3, b3):
     if all(t.device.type == "cpu" for t in (x, w3, b3)):
         return head_tail_plain(x, w3, b3)
     _build.require_cuda("head_tail", x, w3, b3)
-    out = torch.empty((n, k, 2 * hi, 2 * wi), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = lib.sstem_head_tail(x.data_ptr(), w3.data_ptr(), b3.data_ptr(),
-                                 out.data_ptr(), n, hi, wi, cx, cin, k,
-                                 _build.stream())
-    _build.check(rc, "sstem_head_tail")
+    out = launch_entry("sstem_head_tail", x, w3, b3)
     head_tail.launches += 1
     return out
 
 
 head_tail.launches = 0
+
+
+def launch_entry(entry, x, w3, b3):
+    """One launch of a C entry point (``ENTRY_POINTS``) on checked CUDA
+    tensors, not counted in ``head_tail.launches``: ``head_tail`` launches
+    through it, and chip_smoke.py times each design with it."""
+    n, hi, wi, cx = x.shape
+    cin, k = w3.shape[2:]
+    out = torch.empty((n, k, 2 * hi, 2 * wi), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, entry)(x.data_ptr(), w3.data_ptr(), b3.data_ptr(),
+                                 out.data_ptr(), n, hi, wi, cx, cin, k,
+                                 _build.stream())
+    _build.check(rc, entry)
+    return out

@@ -19,6 +19,13 @@ CUDA tensors go through the kernels ``csrc/sepconv_fwd.cu`` and
 ``csrc/sepconv_bwd.cu``; CPU tensors through the plain versions
 ``sepconv_planar_plain`` and ``sepconv_planar_bwd_plain``. The plain versions
 also take float64 (CPU only), which ``torch.autograd.gradcheck`` needs.
+
+The forward kernel has two designs, which the C entry point picks by shape
+(``design``), never as a fallback: the Hopper one (``blocked``: four pixels
+a thread along x, their taps in registers, V staged by cp.async) where W is
+a multiple of 4 and the maps are 16-byte aligned, which is every path's
+shape, and the first port's one-pixel-a-thread design (``simple``) for the
+rest.
 """
 
 import torch
@@ -28,6 +35,20 @@ from sstem_tpu_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_TAPS = 51
+# the blocked design's pixels a thread along x, as csrc/sepconv_fwd.cu
+# picks it: W a multiple of it
+BLOCKED_PIXELS = 4
+# the C entry point of each forward design ("sstem_sepconv_fwd" picks)
+ENTRY_POINTS = {"blocked": "sstem_sepconv_fwd",
+                "simple": "sstem_sepconv_fwd_simple"}
+
+
+def design(w):
+    """The forward kernel design that serves an output width ``w``:
+    'blocked' or 'simple', the C entry point's rule for maps and output on
+    16-byte boundaries, as fresh allocations are (it takes the simple
+    design for maps that are not)."""
+    return "blocked" if w % BLOCKED_PIXELS == 0 else "simple"
 
 
 def _acc_dtype(t):
@@ -113,19 +134,27 @@ def _check(image, vertical, horizontal):
 def _sepconv_fwd(image, vertical, horizontal):
     if image.device.type == "cpu":
         return sepconv_planar_plain(image, vertical, horizontal)
-    n, c, hp, wp = image.shape
+    out = launch_entry("sstem_sepconv_fwd", image, vertical, horizontal)
+    sepconv_planar.launches += 1
+    return out
+
+
+def launch_entry(entry, image, vertical, horizontal):
+    """One launch of a forward C entry point (``ENTRY_POINTS``) on checked
+    CUDA tensors, not counted in ``sepconv_planar.launches``: the forward
+    launches through it, and chip_smoke.py times each design with it."""
+    n, c = image.shape[:2]
     k, h, w = vertical.shape[1:]
     lib = _build.library()
     out = torch.empty((n, c, h, w), dtype=image.dtype, device=image.device)
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sstem_sepconv_fwd(
+        rc = getattr(lib, entry)(
             image.data_ptr(), vertical.data_ptr(), horizontal.data_ptr(),
             out.data_ptr(), n, c, h, w, k,
             int(image.dtype == torch.bfloat16),
             int(vertical.dtype == torch.bfloat16), stream)
-    _build.check(rc, "sstem_sepconv_fwd")
-    sepconv_planar.launches += 1
+    _build.check(rc, entry)
     return out
 
 

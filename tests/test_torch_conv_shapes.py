@@ -5,10 +5,13 @@ restore run at full channel widths on tiny inputs, with zeroed weights
 (only the shapes matter). Every conv3x3_fused and deconv2x_fused call is
 recorded by chip_smoke.py's KernelSignatures and must appear in its
 kernel-vs-plain check lists, which phases 12 and 16 run on the card, and
-have a kernel design. A path that starts calling a new channel signature
-fails here before it reaches the card. No JAX.
+have a kernel design; so must every head-tail and sepconv call, scaled to
+the full-width run, in HEAD_TAIL_CHECKS and SEPCONV_CHECKS (phases 3 and
+12). A path that starts calling a new signature fails here before it
+reaches the card. No JAX.
 """
 
+import importlib
 import importlib.util
 import pathlib
 
@@ -18,7 +21,7 @@ import torch
 
 from sstem_tpu_torch import config
 from sstem_tpu_torch.infer.pipeline import SFFPipeline, SPPipeline
-from sstem_tpu_torch.kernels import conv3x3, deconv
+from sstem_tpu_torch.kernels import conv3x3, deconv, sepconv
 from sstem_tpu_torch.models import FusionNet, FusionNetSP, IFNet, UNetSFF, UNetSP
 from sstem_tpu_torch.models.layers import skip_init
 
@@ -87,6 +90,22 @@ def full_width_shapes(sig, n):
             for k in sig.calls}
 
 
+def full_width_maps(sig, n):
+    """The recorded head-tail and sepconv signatures, scaled to the
+    full-width run as the check lists write them."""
+    out = set()
+    for k in sig.maps:
+        if k[0] == "head_tail":  # (n, hi, wi, cx, k)
+            out.add((k[0], n, k[2] * SCALE, k[3] * SCALE, *k[4:]))
+        else:  # (n, c, h, w, k, image dtype, maps dtype)
+            out.add((k[0], n, k[2], k[3] * SCALE, k[4] * SCALE, *k[5:]))
+    return out
+
+
+def map_launches(sig, kernel):
+    return sum(n for k, n in sig.maps.items() if k[0] == kernel)
+
+
 def timed_shapes(smoke, checks, kernel="conv3x3"):
     return {(kernel, *row) for row in smoke.timing_rows(checks)}
 
@@ -119,6 +138,67 @@ def test_sp_packed_signatures_are_checked_on_the_card(smoke, sp_calls):
     # one restore call: phase 18's conv3x3 launches per batch
     got = sum(sp_calls.calls.values())
     assert got == smoke.SP_LAUNCHES["packed"]["conv3x3_fused"]
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["cudnn_tail", "fused_tail"])
+def test_sff_packed_map_signatures_are_checked_on_the_card(smoke, sff_calls,
+                                                           fused):
+    sig = sff_calls[fused]
+    assert {k[0] for k in sig.maps} == (
+        {"sepconv", "head_tail"} if fused else {"sepconv"})
+    unchecked = full_width_maps(sig, 4) - smoke.MAP_CHECKS
+    assert not unchecked, f"not in chip_smoke.py's check lists: {unchecked}"
+    assert not sig.map_channels() - {
+        smoke.map_channel(k) for k in smoke.MAP_CHECKS}
+    # and the launches per group that phase 14 asserts
+    want = smoke.PATH_LAUNCHES["packed_fused_tail" if fused else "packed"]
+    assert map_launches(sig, "sepconv") == want["sepconv_fwd"]
+    assert map_launches(sig, "head_tail") == want.get("head_tail", 0)
+
+
+def test_sp_packed_map_signatures_are_checked_on_the_card(smoke, sp_calls):
+    unchecked = full_width_maps(sp_calls, smoke.SP_BATCH) - smoke.MAP_CHECKS
+    assert not unchecked, f"not in chip_smoke.py's check lists: {unchecked}"
+    assert {k[0] for k in sp_calls.maps} == {"sepconv"}
+    assert (map_launches(sp_calls, "sepconv")
+            == smoke.SP_LAUNCHES["packed"]["sepconv_fwd"])
+
+
+def test_path_map_signatures_take_the_hopper_designs(sff_calls, sp_calls):
+    """At full width the paths' head tails and sepconvs run the new
+    designs."""
+    ht = importlib.import_module("sstem_tpu_torch.kernels.head_tail")
+    for sig, n in ((sff_calls[True], 4), (sp_calls, 2)):
+        for key in full_width_maps(sig, n):
+            if key[0] == "head_tail":
+                assert ht.design(key[3], key[4], key[5]) == "wgmma", key
+            else:
+                assert sepconv.design(key[4]) == "blocked", key
+
+
+@pytest.mark.parametrize("kernel, shape, want", [
+    ("head_tail", (640, 64, 51), "wgmma"), ("head_tail", (52, 56, 51), "wgmma"),
+    ("head_tail", (40, 64, 56), "wgmma"), ("head_tail", (53, 64, 51), "mma"),
+    ("head_tail", (52, 51, 51), "mma"), ("head_tail", (40, 64, 57), "mma"),
+    ("sepconv", (1280,), "blocked"), ("sepconv", (180,), "blocked"),
+    ("sepconv", (179,), "simple"), ("sepconv", (98,), "simple")])
+def test_map_design_rule(kernel, shape, want):
+    module = (importlib.import_module("sstem_tpu_torch.kernels.head_tail")
+              if kernel == "head_tail" else sepconv)
+    assert module.design(*shape) == want
+
+
+def test_map_check_lists_hold_both_designs(smoke):
+    """The head-tail and sepconv check lists reach each design of the entry
+    point that picks by shape, and hold every path's dtypes."""
+    ht = importlib.import_module("sstem_tpu_torch.kernels.head_tail")
+    assert {ht.design(c[2], c[3], c[4]) for c in smoke.HEAD_TAIL_CHECKS} == set(
+        ht.ENTRY_POINTS)
+    assert {sepconv.design(c[3]) for c in smoke.SEPCONV_CHECKS} == set(
+        sepconv.ENTRY_POINTS)
+    assert {c[5:] for c in smoke.SEPCONV_CHECKS} == {
+        (a, b) for a in ("float32", "bfloat16") for b in ("float32", "bfloat16")}
+    assert {c[4] for c in smoke.SEPCONV_CHECKS} >= {5, 11, smoke.K}
 
 
 def test_every_path_signature_has_a_design(sff_calls, sp_calls):

@@ -90,6 +90,34 @@ def test_port_pipeline_matches_jax(pipelines, jax_results, hw, method):
     _assert_within_bounds(got, jax_results(hw, method))
 
 
+def test_port_scanned_without_flow_matches_jax(pipelines, jax_results):
+    """``want_flow=False``: JAX's keys (no 'flow'), the same images. The JAX
+    side reruns the program it compiled for (96, 96)."""
+    stack = synth_stack(5, 96, 96, seed=3)
+    want = pipelines[0].restore_stack_scanned(stack, IDS, want_flow=False)
+    got = pipelines[1].restore_stack_scanned(stack, IDS, want_flow=False)
+    assert {i: set(r) for i, r in got.items()} == {
+        i: set(r) for i, r in want.items()}
+    assert all("flow" not in r for r in got.values())
+    full = jax_results((96, 96), "restore_stack_scanned")
+    _assert_within_bounds({i: {**r, "flow": full[i]["flow"]}
+                           for i, r in got.items()}, full)
+
+
+def test_port_interpolate_unclipped_matches_jax(pipelines):
+    """``clip=False`` returns the network's prediction as JAX does (within
+    1e-4 abs, float32); ``clip=True`` is its clamp. One (83, 75) section
+    pads to (96, 96), as in ``restore_stack``, so the JAX side reuses the
+    interp function it compiled there."""
+    stack = synth_stack(5, 83, 75, seed=3)
+    prev_, next_ = stack[[0]], stack[[2]]
+    want = np.asarray(pipelines[0].interpolate(prev_, next_, clip=False))
+    got = pipelines[1].interpolate(prev_, next_, clip=False)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    clipped = pipelines[1].interpolate(prev_, next_)
+    assert torch.equal(clipped, got.clamp(0.0, 1.0))
+
+
 def test_port_test_pad_matches_jax(pipelines):
     """TEST.pad: a symmetric zero pad around the interp input, then a crop.
     83 + 2*6 and 75 + 2*6 round up to the same 32-multiples as 83 and 75, so
