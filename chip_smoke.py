@@ -18,7 +18,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernels' launch counts and signatures, ms/section and peak memory
   7. the sepconv forward at the SFF shapes (both designs) and the warp
      kernel, beside their plain versions and bounds (CUDA events)
-  8. sepconv backward kernel vs its plain PyTorch version on the same inputs
+  8. the sepconv backward's two designs (the one the shape picks, and the
+     simple one) vs its plain PyTorch version at every SEPCONV_BWD_CHECKS
+     row but the training signature (phase 11 holds that one)
   9. one IFNet training step on the card vs on the CPU (K=51, 64^2, float32,
      TF32 off): loss and every parameter's gradient
  10. full width training: ``train_interp.main`` for a few steps on the interp
@@ -26,10 +28,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      under the poly warmup/decay LR, float32 with TF32 off, a synthetic
      triplet tree of 16 x 320^2 made from the seed), then the step of
      ``build(cfg)`` timed: ms/step, steps/s, MP/s, peak memory, and the
-     sepconv launches and signatures per step, and 2 steps under
+     sepconv launches and signatures (forward and backward, each checked
+     against its list) per step, and 2 steps under
      torch.profiler (device busy time, idle share, device time by kind)
- 11. the sepconv forward (both designs) and backward kernels vs their plain
-     versions at the training shape, and their times (CUDA events)
+ 11. the sepconv forward and backward kernels (both designs each) vs their
+     plain versions at the training shape, and their times (CUDA events)
  12. conv3x3, pool, deconv and head-tail kernels vs their plain versions at
      every conv3x3 and deconv signature the packed_conv=True SFF path
      launches at full width (SFF_CONV_CHECKS, DECONV_CHECKS) and at odd
@@ -318,7 +321,23 @@ HEAD_TAIL_CHECKS = (
     (2, 37, 52, 56, K), (1, 9, 4, 64, K), (2, 20, 40, 64, 56),
     (2, 37, 53, K, K), (2, 37, 53, 64, K),
 )
+# The sepconv backward's signatures, as SEPCONV_CHECKS writes them: the
+# training step's (the only one a path launches), then rows for the simple
+# design (W % 4 != 0), more channels than one block's shared memory holds,
+# bf16 maps and image, and C > 1 at odd H on the blocked design. Phases 8
+# and 11 hold both designs against the plain version at each; phase 10
+# fails on a launched signature missing here, and
+# tests/test_torch_conv_shapes.py on the training step's.
+SEPCONV_BWD_CHECKS = (
+    (32, 1, 256, 256, K, "float32", "float32"),
+    (2, 3, 61, 47, 11, "float32", "float32"),
+    (1, 13, 40, 40, K, "float32", "float32"),
+    (2, 1, 64, 96, 5, "float32", "bfloat16"),
+    (2, 3, 61, 48, 11, "float32", "float32"),
+    (2, 1, 37, 52, K, "bfloat16", "bfloat16"),
+)
 MAP_CHECKS = ({("sepconv", *c) for c in SEPCONV_CHECKS}
+              | {("sepconv_bwd", *c) for c in SEPCONV_BWD_CHECKS}
               | {("head_tail", *c) for c in HEAD_TAIL_CHECKS})
 
 
@@ -337,11 +356,12 @@ class KernelSignatures:
     deconv2x_fused call that models/serving.py makes while active, with
     the spatial shape, as a Counter of (kernel, n, h, w, cin, cout, act,
     residual). Residual: None, 'pre' or 'post' for conv3x3, the res_mode
-    for deconv2x. The head tails of models/serving.py and the sepconvs of
-    models/serving.py, models/ifnet.py and tools/micro_bench.py go into
-    ``maps``, a Counter of
-    ('head_tail', n, hi, wi, cx, k) and ('sepconv', n, c, h, w, k, image
-    dtype, maps dtype), as the check lists write them."""
+    for deconv2x. The head tails of models/serving.py, the sepconvs of
+    models/serving.py, models/ifnet.py and tools/micro_bench.py and the
+    sepconv backwards (kernels/sepconv.py's ``_sepconv_bwd``) go into
+    ``maps``, a Counter of ('head_tail', n, hi, wi, cx, k), ('sepconv', n,
+    c, h, w, k, image dtype, maps dtype) and ('sepconv_bwd', ...) alike, as
+    the check lists write them."""
 
     def __init__(self):
         import collections
@@ -350,30 +370,42 @@ class KernelSignatures:
         self.maps = collections.Counter()
 
     def __enter__(self):
+        from sstem_tpu_torch.kernels import sepconv
         from sstem_tpu_torch.models import ifnet, serving
         from sstem_tpu_torch.tools import micro_bench
 
         self._serving = serving
         # the modules that call sepconv_planar by name
         self._sep_sites = (serving, ifnet, micro_bench)
+        # sepconv_planar_bwd launches through sepconv._sepconv_bwd
+        self._sepconv = sepconv
         self._orig = serving.conv3x3_fused, serving.deconv2x_fused
         self._orig_tail = serving.head_tail
         conv, deconv = self._orig
         tail, sep = serving.head_tail, serving.sepconv_planar
+        self._orig_bwd = bwd = sepconv._sepconv_bwd
 
         def tail_rec(x, w3, b3):
             self.maps[("head_tail", *x.shape, w3.shape[3])] += 1
             return tail(x, w3, b3)
 
+        def sep_key(kernel, image, vertical):
+            return (kernel, *image.shape[:2], *vertical.shape[2:],
+                    vertical.shape[1], dtype_name(image.dtype),
+                    dtype_name(vertical.dtype))
+
         def sep_rec(image, vertical, horizontal):
-            self.maps[("sepconv", *image.shape[:2], *vertical.shape[2:],
-                       vertical.shape[1], dtype_name(image.dtype),
-                       dtype_name(vertical.dtype))] += 1
+            self.maps[sep_key("sepconv", image, vertical)] += 1
             return sep(image, vertical, horizontal)
+
+        def bwd_rec(image, vertical, horizontal, grad):
+            self.maps[sep_key("sepconv_bwd", image, vertical)] += 1
+            return bwd(image, vertical, horizontal, grad)
 
         serving.head_tail = tail_rec
         for site in self._sep_sites:
             site.sepconv_planar = sep_rec
+        sepconv._sepconv_bwd = bwd_rec
 
         def conv_rec(x, w, scale, shift, act=None, residual=None,
                      residual_pre_affine=False):
@@ -398,6 +430,7 @@ class KernelSignatures:
         self._serving.head_tail = self._orig_tail
         for site in self._sep_sites:
             site.sepconv_planar = sepconv_planar
+        self._sepconv._sepconv_bwd = self._orig_bwd
         return False
 
     def channels(self):
@@ -405,13 +438,14 @@ class KernelSignatures:
         return {(k[0], *k[4:]) for k in self.calls}
 
     def map_channels(self):
-        """{('head_tail', cx, k)} and {('sepconv', c, k, image dtype, maps
-        dtype)} of the recorded map-kernel calls."""
+        """{('head_tail', cx, k)} and {('sepconv' or 'sepconv_bwd', c, k,
+        image dtype, maps dtype)} of the recorded map-kernel calls."""
         return {map_channel(k) for k in self.maps}
 
 
 def map_channel(sig):
-    """A head-tail or sepconv signature without its spatial shape."""
+    """A head-tail or sepconv (backward) signature without its spatial
+    shape."""
     if sig[0] == "head_tail":
         return sig[0], *sig[4:]
     return sig[0], sig[2], *sig[5:]
@@ -508,8 +542,9 @@ def full_size_run(stack, ids, dtype, path="cudnn", chunk=4, profile=False,
 def report_signatures(label, sig, units, unit, checked=frozenset()):
     """Prints each recorded kernel signature with its calls per unit and
     fails when one is not in the check lists: a conv3x3 or deconv2x
-    channel signature not in ``checked``, a head-tail or sepconv signature
-    not in HEAD_TAIL_CHECKS or SEPCONV_CHECKS."""
+    channel signature not in ``checked``, a head-tail or sepconv (backward)
+    signature not in HEAD_TAIL_CHECKS, SEPCONV_CHECKS or
+    SEPCONV_BWD_CHECKS."""
     for key, n in sorted(sig.calls.items(), key=str):
         say(f"{label} {key[0]} {key[1]}x{key[2]}x{key[3]} {key[4]}->{key[5]} "
             f"act={key[6]} res={key[7]} launches per {unit}", n / units)
@@ -519,20 +554,47 @@ def report_signatures(label, sig, units, unit, checked=frozenset()):
     assert not missing, f"{label}: signatures missing from the checks: {missing}"
 
 
-def check_sepconv_bwd(n, c, h, w, k, maps_dtype, gen):
-    """Backward kernel vs plain on the same unit-range image, maps whose
-    taps sum to about 1 per pixel, and a zero-mean output gradient, in the
-    float32 image dtype of training. Returns the max abs error."""
-    from sstem_tpu_torch.kernels import sepconv_planar_bwd, sepconv_planar_bwd_plain
+def sepconv_bwd_inputs(n, c, h, w, k, image, maps, gen):
+    """The forward's inputs (sepconv_inputs) and a zero-mean output gradient
+    in the image dtype (SEPCONV_BWD_CHECKS)."""
+    grad = (rand((n, c, h, w), gen) - 0.5).to(getattr(torch, image))
+    return (*sepconv_inputs(n, c, h, w, k, image, maps, gen), grad)
 
-    image = rand((n, c, h + k - 1, w + k - 1), gen)
-    vert = rand((n, k, h, w), gen, 2.0 / k, maps_dtype)
-    horz = rand((n, k, h, w), gen, 2.0 / k, maps_dtype)
-    grad = rand((n, c, h, w), gen) - 0.5
-    got = sepconv_planar_bwd(image, vert, horz, grad)
-    want = sepconv_planar_bwd_plain(image, vert, horz, grad)
-    label = f"sepconv_bwd {n}x{c}x{h}x{w} K={k} maps={maps_dtype}"
-    return assert_sepconv_bwd_close(label, got, want, (n, k, h, w))
+
+def check_sepconv_bwd(n, c, h, w, k, image, maps, gen):
+    """Both backward designs (the entry point that picks by shape, and the
+    simple design's) against the plain version on the same inputs. Returns
+    the max abs error of the design the shape picks."""
+    from sstem_tpu_torch.kernels import sepconv as sc
+
+    args = sepconv_bwd_inputs(n, c, h, w, k, image, maps, gen)
+    want = sc.sepconv_planar_bwd_plain(*args)
+    err = {}
+    for name, entry in sc.BWD_ENTRY_POINTS.items():
+        label = (f"sepconv_bwd {entry} (shape picks {sc.design(w)}) "
+                 f"{n}x{c}x{h}x{w} K={k} image={image} maps={maps}")
+        err[name] = assert_sepconv_bwd_close(
+            label, sc.launch_bwd_entry(entry, *args), want, (n, k, h, w))
+    return err[sc.design(w)]
+
+
+def time_sepconv_bwd(n, c, h, w, k, image, maps, gen, reps=20):
+    """The sepconv backward at one signature, by CUDA events, as
+    time_sepconv times the forward: the design the entry point picks (ms,
+    design), the simple design in the same call (simple_ms), the plain
+    version and the bound; no single PyTorch call computes it."""
+    from sstem_tpu_torch.kernels import sepconv as sc
+
+    args = sepconv_bwd_inputs(n, c, h, w, k, image, maps, gen)
+    size = {"float32": 4, "bfloat16": 2}
+    t = timing(cuda_ms(lambda: sc.launch_bwd_entry("sstem_sepconv_bwd", *args),
+                       reps, 3),
+               cuda_ms(lambda: sc.sepconv_planar_bwd_plain(*args), 2), None,
+               sepconv_bound(n, c, h, w, k, size[image], size[maps], True))
+    t.update(design=sc.design(w), simple_ms=cuda_ms(
+        lambda: sc.launch_bwd_entry(sc.BWD_ENTRY_POINTS["simple"], *args),
+        reps, 3))
+    return t
 
 
 def assert_sepconv_bwd_close(label, got, want, shape):
@@ -1729,7 +1791,8 @@ def new_kernel_entries(res):
 
 def ptxas_summary(log):
     """One line per kernel of the Hopper designs (conv3x3 and deconv wgmma,
-    head-tail wgmma, sepconv blocked) from the build's ptxas -v output:
+    head-tail wgmma, sepconv forward and backward blocked) from the build's
+    ptxas -v output:
     registers, spills, static shared memory (the dynamic shared memory of
     each wgmma instantiation is its source's plan, PERF.md), and every
     warning that ptxas serialized a kernel's wgmmas."""
@@ -1742,14 +1805,16 @@ def ptxas_summary(log):
             say("ptxas wgmma serialized", line.split("function", 1)[-1].strip())
         if "Compiling entry function" in line:
             m = re.search(r"(conv3x3|deconv2x)_wgmma_kernelILi(\d+)ELi(\d+)", line)
-            b = re.search(r"sepconv_fwd_blocked_kernelILi(\d+)E(\w+?)EEv", line)
+            b = re.search(r"sepconv_(fwd|bwd)_blocked_kernelILi(\d+)E"
+                          r"(?:Li(\d+)E)?(\w+?)EEv", line)
             if m:
                 name = f"{m.group(1)} wgmma Cin_p={m.group(2)} N={m.group(3)}"
             elif b:
                 dts = [types[t] for t in re.findall(r"13__nv_bfloat16|S2_|f",
-                                                     b.group(2))]
-                k = "any" if b.group(1) == "0" else b.group(1)
-                name = f"sepconv blocked K={k} image,maps={dts}"
+                                                     b.group(4))]
+                k = "any" if b.group(2) == "0" else b.group(2)
+                c = {None: "", "0": " C=any"}.get(b.group(3), f" C={b.group(3)}")
+                name = f"sepconv {b.group(1)} blocked K={k}{c} image,maps={dts}"
             elif "head_tail_wgmma_kernel" in line:
                 name = "head_tail wgmma"
             else:
@@ -1774,12 +1839,7 @@ def main():
 
     from sstem_tpu_torch import config
     from sstem_tpu_torch.data import synth_stack
-    from sstem_tpu_torch.kernels import (
-        _build,
-        sepconv_planar_bwd,
-        sepconv_planar_bwd_plain,
-        serving_warp,
-    )
+    from sstem_tpu_torch.kernels import _build, serving_warp
     from sstem_tpu_torch.ops.flow import fold_flows
     from sstem_tpu_torch.ops.warp import spatial_transform
 
@@ -1833,12 +1893,11 @@ def main():
     say("warp 4x1280x1280 fold plain_ms", plain)
     times["warp"] = (ms, plain)
 
-    phase("8 sepconv backward kernel vs plain")
-    # the training shape is checked in phase 11, on the inputs it times
-    bwd_err = check_sepconv_bwd(2, 3, 61, 47, 11, f32, gen)
-    # more channels than fit in shared memory at K=51: the chunked path
-    bwd_err = max(bwd_err, check_sepconv_bwd(1, 13, 40, 40, K, f32, gen))
-    check_sepconv_bwd(2, 1, 64, 96, 5, bf16, gen)
+    phase("8 sepconv backward kernel vs plain, both designs, "
+          "SEPCONV_BWD_CHECKS")
+    # the training signature (the first row) is phase 11's
+    for c in SEPCONV_BWD_CHECKS[1:]:
+        check_sepconv_bwd(*c, gen)
 
     phase("9 IFNet training step card vs cpu (K=51, 64^2, float32, TF32 off)")
     train_step_card_vs_cpu()
@@ -1852,22 +1911,11 @@ def main():
     times["sepconv_fwd_train"] = time_sepconv(n, 1, hw, hw, K, "float32",
                                               "float32", gen, reps=20)
     say_timing(f"sepconv_fwd[train {n}x1x{hw}^2 f32]", times["sepconv_fwd_train"])
-    image = rand((n, 1, hw + K - 1, hw + K - 1), gen)
-    vert = rand((n, K, hw, hw), gen, 2.0 / K)
-    horz = rand((n, K, hw, hw), gen, 2.0 / K)
-    grad = rand((n, 1, hw, hw), gen) - 0.5
-    label = f"{n}x1x{hw}x{hw} K=51 f32"
-    bwd_err = max(bwd_err, assert_sepconv_bwd_close(
-        f"sepconv_bwd {label}", sepconv_planar_bwd(image, vert, horz, grad),
-        sepconv_planar_bwd_plain(image, vert, horz, grad), (n, K, hw, hw)))
-    ms = cuda_ms(lambda: sepconv_planar_bwd(image, vert, horz, grad), reps=20,
-                 warmup=3)
-    plain_ms = cuda_ms(
-        lambda: sepconv_planar_bwd_plain(image, vert, horz, grad), reps=2)
-    say(f"sepconv_bwd {label} kernel_ms", ms)
-    say(f"sepconv_bwd {label} plain_ms", plain_ms)
-    times["sepconv_bwd"] = (ms, plain_ms)
-    del image, vert, horz, grad
+    train_sig = SEPCONV_BWD_CHECKS[0]
+    assert train_sig == (n, 1, hw, hw, K, "float32", "float32"), train_sig
+    bwd_train_err = check_sepconv_bwd(*train_sig, gen)
+    times["sepconv_bwd"] = time_sepconv_bwd(*train_sig, gen)
+    say_timing(f"sepconv_bwd[train {n}x1x{hw}^2 f32]", times["sepconv_bwd"])
 
     packed = packed_phases(gen, stack, ids)
     del stack
@@ -1898,15 +1946,12 @@ def main():
         "replaces": "sstem_tpu/kernels/sepconv.py:240",
         "launches": train_launches["sepconv_fwd"],
         "max_abs_err": fwd_train_err, **times["sepconv_fwd_train"]})
-    bound, by = sepconv_bound(n, 1, hw, hw, K, 4, 4, True)
     kernels.append({
         "name": "sepconv_bwd", "route": "cuda",
         "source": "sstem_tpu_torch/csrc/sepconv_bwd.cu",
         "replaces": "sstem_tpu/kernels/sepconv.py:287",
         "launches": train_launches["sepconv_bwd"],
-        "max_abs_err": bwd_err,
-        "ms": times["sepconv_bwd"][0], "plain_ms": times["sepconv_bwd"][1],
-        "bound_ms": bound, "bound_by": by, "library_ms": None})
+        "max_abs_err": bwd_train_err, **times["sepconv_bwd"]})
     kernels += new_kernel_entries(packed)
     sp["err"]["sepconv_fwd[sp"] = sep_err[(SP_BATCH, 1, 1280, 1280, K,
                                            "bfloat16", "bfloat16")]

@@ -49,21 +49,11 @@
 // shared memory as f32, the thread's K horizontal taps in registers, one
 // shared-memory load per FMA and V[u] read from device memory in the loop.
 
-#include "hopper.cuh"
+#include "sepconv_tile.cuh"
 
 namespace {
 
-constexpr int kKMax = 51;
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+using namespace sstem::sepconv;
 
 // ---------------------------------------------------------------------------
 // the simple design
@@ -160,7 +150,7 @@ void launch(const void* image, const void* vert, const void* horz, void* out,
 
 namespace blocked {
 
-constexpr int kR = 4;                    // pixels per thread along x
+constexpr int kR = kRun;                 // pixels per thread along x
 constexpr int kRows = 32;                // block rows: 8 per warp
 constexpr int kCols = 4 * kR;            // block columns: 4 threads of kR
 constexpr int kThreads = 128;
@@ -172,24 +162,6 @@ constexpr int kLoads = (kR + kKMax - 1 + 3) / 4;  // 16-byte loads a row
 constexpr int kPitch = (3 * kR + 4 * kLoads + 31 - 4) / 32 * 32 + 4;
 static_assert(kPitch >= 3 * kR + 4 * kLoads && kPitch % 32 == 4, "pitch");
 
-// kR values of a map at p (aligned to kR elements) as f32
-__device__ __forceinline__ void load_px(const float* p, float (&v)[kR]) {
-  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-// The bf16 taps become f32 registers here, once: the empty asm keeps the
-// compiler from holding them packed and redoing the conversion before
-// every FMA, which doubled the u loop's instructions.
-__device__ __forceinline__ void load_px(const __nv_bfloat16* p,
-                                        float (&v)[kR]) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = __uint_as_float(q.x << 16);
-  v[1] = __uint_as_float(q.x & 0xffff0000u);
-  v[2] = __uint_as_float(q.y << 16);
-  v[3] = __uint_as_float(q.y & 0xffff0000u);
-#pragma unroll
-  for (int i = 0; i < kR; ++i) asm volatile("mov.b32 %0, %0;" : "+f"(v[i]));
-}
 __device__ __forceinline__ void slot_px(const unsigned char* s, float,
                                         float (&v)[kR]) {
   const float4 q = *reinterpret_cast<const float4*>(s);
@@ -202,17 +174,6 @@ __device__ __forceinline__ void slot_px(const unsigned char* s,
   v[1] = __uint_as_float(q.x & 0xffff0000u);
   v[2] = __uint_as_float(q.y << 16);
   v[3] = __uint_as_float(q.y & 0xffff0000u);
-}
-
-__device__ __forceinline__ void store_px(float* p, const float (&v)[kR]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store_px(__nv_bfloat16* p,
-                                         const float (&v)[kR]) {
-  uint2 q;
-  q.x = sstem::hopper::pack2u(v[0], v[1]);
-  q.y = sstem::hopper::pack2u(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = q;
 }
 
 // KS > 0: K fixed at compile time. KS == 0: runtime k (1..kKMax).

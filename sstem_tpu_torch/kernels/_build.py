@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` (with the shared headers ``csrc/conv_tile.cuh`` and
-``csrc/hopper.cuh``) is compiled
+``csrc/*.cu`` (with the shared headers ``csrc/conv_tile.cuh``,
+``csrc/hopper.cuh`` and ``csrc/sepconv_tile.cuh``) is compiled
 with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together
 (the build takes the slowest source's time, not the sum; the log gives each
 source's seconds), and linked into one shared library with a plain C
@@ -44,9 +44,12 @@ _ENTRY_POINTS = {
     "sstem_sepconv_fwd_simple": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _P],
     # image, vertical, horizontal, grad, dvertical, dhorizontal, n, c, h, w,
-    # k, image_bf16, maps_bf16, stream
+    # k, image_bf16, maps_bf16, stream (_simple: the first design at any
+    # shape)
     "sstem_sepconv_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P],
+    "sstem_sepconv_bwd_simple": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _P],
     # im, flow, out, n, h, w, stream
     "sstem_warp_bilinear": [_P, _P, _P, _I, _I, _I, _P],
     # x, w, scale, shift, res, out, n, h, w, cin, cout, act, res_mode, stream

@@ -20,12 +20,14 @@ CUDA tensors go through the kernels ``csrc/sepconv_fwd.cu`` and
 ``sepconv_planar_plain`` and ``sepconv_planar_bwd_plain``. The plain versions
 also take float64 (CPU only), which ``torch.autograd.gradcheck`` needs.
 
-The forward kernel has two designs, which the C entry point picks by shape
-(``design``), never as a fallback: the Hopper one (``blocked``: four pixels
-a thread along x, their taps in registers, V staged by cp.async) where W is
+Each kernel has two designs, which its C entry point picks by shape
+(``design``), never as a fallback: the Hopper one (``blocked``) where W is
 a multiple of 4 and the maps are 16-byte aligned, which is every path's
 shape, and the first port's one-pixel-a-thread design (``simple``) for the
-rest.
+rest. The forward's ``blocked`` design holds four pixels a thread along x
+with their taps in registers and stages V by cp.async; the backward's runs
+two passes over one staged window, dV with four pixels' H taps along x and
+dH with four pixels' V taps along y on a transposed copy.
 """
 
 import torch
@@ -35,19 +37,22 @@ from sstem_tpu_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_TAPS = 51
-# the blocked design's pixels a thread along x, as csrc/sepconv_fwd.cu
-# picks it: W a multiple of it
+# the blocked designs' pixels a thread, as csrc/sepconv_{fwd,bwd}.cu pick
+# them: W a multiple of it
 BLOCKED_PIXELS = 4
-# the C entry point of each forward design ("sstem_sepconv_fwd" picks)
+# the C entry point of each design ("sstem_sepconv_fwd" and
+# "sstem_sepconv_bwd" pick)
 ENTRY_POINTS = {"blocked": "sstem_sepconv_fwd",
                 "simple": "sstem_sepconv_fwd_simple"}
+BWD_ENTRY_POINTS = {"blocked": "sstem_sepconv_bwd",
+                    "simple": "sstem_sepconv_bwd_simple"}
 
 
 def design(w):
-    """The forward kernel design that serves an output width ``w``:
-    'blocked' or 'simple', the C entry point's rule for maps and output on
-    16-byte boundaries, as fresh allocations are (it takes the simple
-    design for maps that are not)."""
+    """The design, forward and backward alike, that serves an output width
+    ``w``: 'blocked' or 'simple', the C entry points' rule for maps (and
+    output) on 16-byte boundaries, as fresh allocations are (they take the
+    simple design for maps that are not)."""
     return "blocked" if w % BLOCKED_PIXELS == 0 else "simple"
 
 
@@ -178,27 +183,42 @@ def sepconv_planar_bwd(image, vertical, horizontal, grad):
             f"sepconv_planar_bwd: grad must be {(n, c, *vertical.shape[2:])} "
             f"{image.dtype} on {image.device}; got {tuple(grad.shape)} "
             f"{grad.dtype} on {grad.device}")
+    if image.device.type == "cuda" and not grad.is_contiguous():
+        raise ValueError("sepconv_planar_bwd: grad must be contiguous")
+    return _sepconv_bwd(image, vertical, horizontal, grad)
+
+
+sepconv_planar_bwd.launches = 0
+
+
+def _sepconv_bwd(image, vertical, horizontal, grad):
     if image.device.type == "cpu":
         return sepconv_planar_bwd_plain(image, vertical, horizontal, grad)
-    if not grad.is_contiguous():
-        raise ValueError("sepconv_planar_bwd: grad must be contiguous")
+    out = launch_bwd_entry("sstem_sepconv_bwd", image, vertical, horizontal,
+                           grad)
+    sepconv_planar_bwd.launches += 1
+    return out
+
+
+def launch_bwd_entry(entry, image, vertical, horizontal, grad):
+    """One launch of a backward C entry point (``BWD_ENTRY_POINTS``) on
+    checked CUDA tensors, not counted in ``sepconv_planar_bwd.launches``:
+    the backward launches through it, and chip_smoke.py times each design
+    with it. Returns (dV, dH)."""
+    n, c = image.shape[:2]
     k, h, w = vertical.shape[1:]
     lib = _build.library()
     dv = torch.empty_like(vertical)
     dh = torch.empty_like(horizontal)
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sstem_sepconv_bwd(
+        rc = getattr(lib, entry)(
             image.data_ptr(), vertical.data_ptr(), horizontal.data_ptr(),
             grad.data_ptr(), dv.data_ptr(), dh.data_ptr(), n, c, h, w, k,
             int(image.dtype == torch.bfloat16),
             int(vertical.dtype == torch.bfloat16), stream)
-    _build.check(rc, "sstem_sepconv_bwd")
-    sepconv_planar_bwd.launches += 1
+    _build.check(rc, entry)
     return dv, dh
-
-
-sepconv_planar_bwd.launches = 0
 
 
 class _SepconvPlanar(torch.autograd.Function):

@@ -7,8 +7,10 @@ recorded by chip_smoke.py's KernelSignatures and must appear in its
 kernel-vs-plain check lists, which phases 12 and 16 run on the card, and
 have a kernel design; so must every head-tail and sepconv call, scaled to
 the full-width run, in HEAD_TAIL_CHECKS and SEPCONV_CHECKS (phases 3 and
-12). A path that starts calling a new signature fails here before it
-reaches the card. No JAX.
+12). The interp trainer's sepconv backwards, recorded from one backward of
+IFNet(51), must be in SEPCONV_BWD_CHECKS (phases 8, 10 and 11). A path that
+starts calling a new signature fails here before it reaches the card. No
+JAX.
 """
 
 import importlib
@@ -181,8 +183,13 @@ def test_path_map_signatures_take_the_hopper_designs(sff_calls, sp_calls):
     ("head_tail", (40, 64, 56), "wgmma"), ("head_tail", (53, 64, 51), "mma"),
     ("head_tail", (52, 51, 51), "mma"), ("head_tail", (40, 64, 57), "mma"),
     ("sepconv", (1280,), "blocked"), ("sepconv", (180,), "blocked"),
-    ("sepconv", (179,), "simple"), ("sepconv", (98,), "simple")])
+    ("sepconv", (179,), "simple"), ("sepconv", (98,), "simple"),
+    ("sepconv_bwd", (256,), "blocked"), ("sepconv_bwd", (52,), "blocked"),
+    ("sepconv_bwd", (48,), "blocked"), ("sepconv_bwd", (4,), "blocked"),
+    ("sepconv_bwd", (47,), "simple"), ("sepconv_bwd", (61,), "simple"),
+    ("sepconv_bwd", (1,), "simple")])
 def test_map_design_rule(kernel, shape, want):
+    """The head tail's rule, and the rule both sepconv kernels share."""
     module = (importlib.import_module("sstem_tpu_torch.kernels.head_tail")
               if kernel == "head_tail" else sepconv)
     assert module.design(*shape) == want
@@ -199,6 +206,74 @@ def test_map_check_lists_hold_both_designs(smoke):
     assert {c[5:] for c in smoke.SEPCONV_CHECKS} == {
         (a, b) for a in ("float32", "bfloat16") for b in ("float32", "bfloat16")}
     assert {c[4] for c in smoke.SEPCONV_CHECKS} >= {5, 11, smoke.K}
+
+
+@pytest.fixture(scope="module")
+def train_calls(smoke):
+    """KernelSignatures of one L1 backward of IFNet(51) (the interp
+    trainer's model) on a 32^2 crop, batch 1."""
+    from sstem_tpu_torch import losses
+
+    with skip_init():
+        model = _zeroed(IFNet(smoke.K))
+    x = torch.zeros(1, 6, 32, 32)
+    with smoke.KernelSignatures() as sig:
+        losses.l1_loss(model(x), torch.ones(1, 1, 32, 32)).backward()
+    return sig
+
+
+# the trainer's step runs batch 32 of 256^2 crops
+TRAIN_SCALE = 256 // 32
+
+
+def test_training_backward_signatures_are_checked_on_the_card(smoke,
+                                                              train_calls):
+    """The training step's sepconv backwards, scaled to 32 x 256^2, are in
+    SEPCONV_BWD_CHECKS (phases 8, 10 and 11) and take the blocked design;
+    2 a step, as phase 10 asserts."""
+    bwd = {k: n for k, n in train_calls.maps.items() if k[0] == "sepconv_bwd"}
+    assert sum(bwd.values()) == 2
+    full = {(smoke.TRAIN_BATCH * k[1], k[2], k[3] * TRAIN_SCALE,
+             k[4] * TRAIN_SCALE, *k[5:]) for k in bwd}
+    assert full == {smoke.SEPCONV_BWD_CHECKS[0]}
+    for sig in full:
+        assert ("sepconv_bwd", *sig) in smoke.MAP_CHECKS
+        assert sepconv.design(sig[3]) == "blocked", sig
+
+
+def test_recorded_backward_launch_is_counted_once(smoke, monkeypatch):
+    """A backward launch on the card, recorded by KernelSignatures, still
+    counts once in sepconv_planar_bwd.launches (phase 10 asserts 2 a step):
+    the recorder wraps the launch, not the counted wrapper. The launch
+    itself is replaced here; the tensors only claim the card."""
+    import types
+
+    def on_card(shape):
+        return types.SimpleNamespace(shape=shape, dtype=torch.float32,
+                                     device=torch.device("cuda"))
+
+    image, maps = on_card((1, 1, 60, 60)), on_card((1, smoke.K, 10, 10))
+    monkeypatch.setattr(sepconv, "launch_bwd_entry", lambda *args: args[1:3])
+    monkeypatch.setattr(sepconv.sepconv_planar_bwd, "launches", 0)
+    with smoke.KernelSignatures() as sig:
+        sepconv._sepconv_bwd(image, maps, maps, on_card((1, 1, 10, 10)))
+    assert sepconv.sepconv_planar_bwd.launches == 1
+    assert dict(sig.maps) == {("sepconv_bwd", 1, 1, 10, 10, smoke.K,
+                               "float32", "float32"): 1}
+
+
+def test_sepconv_bwd_check_list_holds_both_designs(smoke):
+    """SEPCONV_BWD_CHECKS reaches both backward designs, bf16 maps, more
+    channels than one block of the blocked design stages, and C > 1 at an
+    odd height on the blocked design."""
+    rows = smoke.SEPCONV_BWD_CHECKS
+    assert {sepconv.design(c[3]) for c in rows} == set(
+        sepconv.BWD_ENTRY_POINTS)
+    assert any(c[6] == "bfloat16" for c in rows)
+    assert max(c[1] for c in rows) > 4
+    assert any(c[1] > 1 and c[2] % 2 and sepconv.design(c[3]) == "blocked"
+               for c in rows)
+    assert {c[4] for c in rows} >= {5, 11, smoke.K}
 
 
 def test_every_path_signature_has_a_design(sff_calls, sp_calls):
