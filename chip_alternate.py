@@ -6,7 +6,10 @@
 Runs chip_smoke.py's end-to-end workloads from the parent checkout
 PARENT_DIR ('p') and from this one ('c') in turn, each run in a process of
 its own started from that checkout's root (so each imports and builds its
-own kernels): the interp training step (``full_width_training``: IFNet
+own kernels): the probes' gather and roll at phase 19b's shapes (ms per
+call by CUDA events, the median of 5 rounds of 50 calls that alternate
+with ``torch.gather`` / ``torch.roll`` with the shift read to the host, and
+the host microseconds per call), the interp training step (``full_width_training``: IFNet
 K=51, batch 32 x 256^2, f32 TF32 off), the SFF restore in bf16 on the
 cuDNN path and on the packed path with fused head tails
 (``full_size_run``, 25 x 1250^2, 12 sections), and the SP restore on both
@@ -24,8 +27,9 @@ import re
 import subprocess
 import sys
 
-# run from a checkout's root; uses only what chip_smoke.py has had since the
-# training step and the SP restore were ported
+# run from a checkout's root; uses only what chip_smoke.py and the probes
+# have had since the training step, the SP restore and the probes were
+# ported
 WORKLOADS = r"""
 import subprocess
 import numpy as np
@@ -38,6 +42,50 @@ cs.GPU = subprocess.run(
     ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
     capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 config.disable_tf32()
+
+import statistics
+import time
+from sstem_tpu_torch.kernels import roll_dynamic, take_along_axis
+from sstem_tpu_torch.tools import probe_gather as pg
+
+def paired(kernel, library, rounds=5, reps=50):
+    ms = {kernel: [], library: []}
+    for _ in range(rounds):
+        for fn in ms:
+            ms[fn].append(cs.cuda_ms(fn, reps, 5))
+    return [statistics.median(v) for v in ms.values()]
+
+def host_us(fn, reps=200):
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
+
+gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+for axis, rows, cols in pg.GATHER_CASES:
+    src, idx = pg.gather_inputs(axis, rows, cols, "cuda", gen)
+    idx64 = idx.long()
+    kernel = lambda: take_along_axis(src, idx, axis)
+    ms = paired(kernel, lambda: torch.gather(src, axis, idx64))
+    name = f"probe gather axis={axis} {rows}x{cols}"
+    cs.say(f"{name} ms_per_call", ms[0])
+    cs.say(f"{name} torch.gather ms_per_call", ms[1])
+    cs.say(f"{name} host_us_per_call", host_us(kernel))
+for rows, cols in pg.ROLL_CASES:
+    src = torch.rand((rows, cols), generator=gen, device="cuda")
+    shift = torch.tensor([pg.ROLL_SHIFT], dtype=torch.int32, device="cuda")
+    kernel = lambda: roll_dynamic(src, shift)
+    ms = paired(kernel, lambda: torch.roll(src, int(shift.item()), 1))
+    name = f"probe roll {rows}x{cols}"
+    cs.say(f"{name} ms_per_call", ms[0])
+    cs.say(f"{name} torch.roll ms_per_call", ms[1])
+    cs.say(f"{name} host_us_per_call", host_us(kernel))
+
 cs.full_width_training()
 stack = synth_stack(25, 1250, 1250, seed=cs.SEED)
 ids = list(range(1, 24, 2))
@@ -63,7 +111,8 @@ METRICS = re.compile(
     r"|train profile sepconv kernels device ms per step \(share of work\)"
     r"|train profile idle share"
     r"|full bfloat16 \S+ ms_per_section \(median of 5\)"
-    r"|sp full \S+ \S+ ms_per_quartet \(median of 5\)) = (\S+)")
+    r"|sp full \S+ \S+ ms_per_quartet \(median of 5\)"
+    r"|probe (?:gather|roll) .*?(?:ms|host_us)_per_call) = (\S+)")
 
 
 def run(root, label):

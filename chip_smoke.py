@@ -49,8 +49,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      same call, the plain version, the bound, the bare cuDNN call and (conv)
      cuDNN with the epilogue as separate ops, and the launches per group;
      then the pool, and the head tail (both designs) beside theirs
- 16. the probe kernels (tile copy, gather, dynamic roll; exact) and conv3x3
-     at every SP path signature (SP_CONV_CHECKS) vs their plain versions
+ 16. the probe kernels (tile copy, gather, dynamic roll; exact, the gather
+     and roll also at the edge cases of tools/probe_gather.py: EDGE_CASES)
+     and conv3x3 at every SP path signature (SP_CONV_CHECKS) vs their plain
+     versions
  17. SPPipeline.restore on the card vs on the CPU (K=51, two quartets of
      150 x 170): float32 with TF32 off, and the packed_conv=True path in
      bfloat16 on both sides
@@ -64,7 +66,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      --parity and --bench, micro_bench) with launch counts asserted and
      micro_bench's sepconv signature checked, then each probe kernel at the
      JAX probes' shapes beside its plain version, its library call and its
-     bound (CUDA events; the sepconv with both designs)
+     bound (CUDA events; the sepconv with both designs); the gather and
+     roll, and torch.gather / torch.roll beside them, timed in alternating
+     rounds and split into host and device microseconds per call
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -710,6 +714,19 @@ def profile_steps(train_step, state, batch, steps=2):
     profile_runs("train", step, steps, 1, "step", "train_profile.json")
 
 
+def device_work(prof, trace_name):
+    """The device's work (kernels, copies, memsets) in a finished
+    torch.profiler run, from its trace exported under ``OUT``."""
+    os.makedirs(OUT, exist_ok=True)
+    trace = os.path.join(OUT, trace_name)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        work = [e for e in json.load(f)["traceEvents"]
+                if e.get("ph") == "X" and e.get("cat") in DEVICE_WORK]
+    assert work, "the trace holds no device work"
+    return work
+
+
 def profile_runs(label, run, reps, per, unit, trace_name):
     """torch.profiler over ``reps`` calls of ``run`` (``per`` units each):
     wall ms per unit, the device's busy ms per unit (the union of its
@@ -724,13 +741,7 @@ def profile_runs(label, run, reps, per, unit, trace_name):
             run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / (reps * per)
-    os.makedirs(OUT, exist_ok=True)
-    trace = os.path.join(OUT, trace_name)
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        work = [e for e in json.load(f)["traceEvents"]
-                if e.get("ph") == "X" and e.get("cat") in DEVICE_WORK]
-    assert work, "the trace holds no device work"
+    work = device_work(prof, trace_name)
     units = reps * per
     busy, end = 0.0, float("-inf")  # union of [ts, ts + dur), in us
     for e in sorted(work, key=lambda e: e["ts"]):
@@ -884,6 +895,74 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# kernel-name fragments of the probes' split (phase 19b) -> kind
+PROBE_KINDS = (
+    ("probe_gather", "gather kernel"), ("probe_roll", "roll kernel"),
+    ("scatter_gather", "torch.gather kernel"),
+    ("roll_cuda", "torch.roll kernel"), ("memcpy", "copies"),
+)
+
+
+def paired_ms(kernel, library, rounds=5, reps=50):
+    """CUDA-event ms per call of ``kernel`` and of ``library``: the median
+    of ``rounds`` rounds of ``reps`` calls each, the two alternating, so
+    that a host that is slower for a while slows both."""
+    ms = ([], [])
+    for _ in range(rounds):
+        for fn, got in zip((kernel, library), ms):
+            got.append(cuda_ms(fn, reps, 5))
+    return statistics.median(ms[0]), statistics.median(ms[1])
+
+
+def host_us(fn, reps=200, warmup=20):
+    """Host microseconds per call of ``fn``: the host clock around ``reps``
+    calls with no synchronise in the loop, after warm-up, from an empty
+    queue."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds * 1e6 / reps
+
+
+def device_us(fn, trace_name, reps=200, warmup=5):
+    """Device microseconds per call of ``fn`` by kind (``PROBE_KINDS``),
+    from torch.profiler over ``reps`` calls: {kind: us per call}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kinds = {}
+    for e in device_work(prof, trace_name):
+        name = e["name"].lower()
+        kind = next((k for frag, k in PROBE_KINDS if frag in name), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e["dur"] / reps
+    return kinds
+
+
+def host_device_split(name, kernel, library):
+    """Phase 19b's split of one probe case: the host and the device
+    microseconds per call of the kernel's wrapper and of the PyTorch call
+    beside it, each device time by kind."""
+    out = {}
+    for key, fn in (("", kernel), ("library_", library)):
+        kinds = device_us(fn, "split.json")
+        out[f"{key}host_us"] = host_us(fn)
+        out[f"{key}device_us"] = sum(kinds.values())
+        for kind, us in sorted(kinds.items()):
+            say(f"{name} {key}device_us {kind}", us)
+    return out
 
 
 # the card's dense bf16 tensor-core peak (H100 SXM at 700 W), FLOP/s
@@ -1062,7 +1141,9 @@ def compare_packed(gpu_sec, cpu_sec, gpu, cpu, ids):
 
 def say_timing(name, t):
     for key in ("design", "ms", "mma_ms", "simple_ms", "plain_ms",
-                "library_ms", "cudnn_epilogue_ms", "launches_per_unit"):
+                "library_ms", "cudnn_epilogue_ms", "launches_per_unit",
+                "host_us", "device_us", "library_host_us",
+                "library_device_us"):
         if key in t:
             say(f"{name} {key}", t[key])
     say(f"{name} bound_ms ({t['bound_by']})", t["bound_ms"])
@@ -1507,7 +1588,8 @@ def check_exact(label, got, want):
 def check_probe_kernels(gen):
     """Phase 16: the probe kernels (exact) and conv3x3_fused at every SP
     path signature (1 bf16 ulp + 2^-14 of the max) against their plain
-    versions, at the SP path's and the probes' shapes and at odd sizes."""
+    versions, at the SP path's and the probes' shapes, at odd sizes and,
+    for the gather and the roll, at every EDGE_CASES row."""
     from sstem_tpu_torch.kernels import (
         roll_dynamic, roll_dynamic_plain, take_along_axis,
         take_along_axis_plain, tile_copy, tile_copy_plain)
@@ -1524,18 +1606,21 @@ def check_probe_kernels(gen):
                           dtype=torch.uint8)
         check_exact(f"probe_copy uint8 {shape} ty=3", tile_copy(x, 3),
                     tile_copy_plain(x))
-    for axis, rows, cols in probe_gather.GATHER_CASES:
+    edges = probe_gather.EDGE_CASES
+    for axis, rows, cols in probe_gather.GATHER_CASES + tuple(
+            c[1:] for c in edges if c[0] == "gather"):
         src, idx = probe_gather.gather_inputs(axis, rows, cols, DEV, gen)
         idx[0, :3] = torch.tensor([-1, rows + cols, -(rows + cols)])
         check_exact(f"probe_gather axis={axis} {rows}x{cols}",
                     take_along_axis(src, idx, axis),
                     take_along_axis_plain(src, idx, axis))
-    for rows, cols in probe_gather.ROLL_CASES:
+    rolls = [(rows, cols, shift) for rows, cols in probe_gather.ROLL_CASES
+             for shift in (probe_gather.ROLL_SHIFT, -3, 3 * cols + 1)]
+    for rows, cols, shift in rolls + [c[1:] for c in edges if c[0] == "roll"]:
         src = torch.rand((rows, cols), generator=gen, device=DEV)
-        for shift in (probe_gather.ROLL_SHIFT, -3, 3 * cols + 1):
-            s = torch.tensor([shift], dtype=torch.int32, device=DEV)
-            check_exact(f"probe_roll {rows}x{cols} shift {shift}",
-                        roll_dynamic(src, s), roll_dynamic_plain(src, s))
+        s = torch.tensor([shift], dtype=torch.int32, device=DEV)
+        check_exact(f"probe_roll {rows}x{cols} shift {shift}",
+                    roll_dynamic(src, s), roll_dynamic_plain(src, s))
     err.update({"probe_copy": 0.0, "probe_gather": 0.0, "probe_roll": 0.0})
     return err
 
@@ -1585,15 +1670,18 @@ def run_probes():
 def time_probe_kernels(gen, err):
     """Phase 19b: each probe kernel at the JAX probes' shapes, by CUDA
     events, beside its plain version, one library call for the same work
-    and its bound; the sepconv kernel at micro_bench's shape is checked
-    against its plain version first (its error goes into ``err``). Returns
-    {name: timing dict}."""
+    and its bound; the gather and the roll against their library calls in
+    alternating rounds (``paired_ms``) and split into host and device
+    microseconds per call (``host_device_split``); the sepconv kernel at
+    micro_bench's shape is checked against its plain version first (its
+    error goes into ``err``). Returns {name: timing dict}."""
     import torch.nn.functional as F
 
     from sstem_tpu_torch.kernels import (
         conv3x3_fused, conv3x3_fused_plain, fold_affine, roll_dynamic,
         roll_dynamic_plain, sepconv_planar, sepconv_planar_plain,
         take_along_axis, take_along_axis_plain, tile_copy, tile_copy_plain)
+    from sstem_tpu_torch.kernels import _build
     from sstem_tpu_torch.kernels import sepconv as sc
     from sstem_tpu_torch.ops import replication_pad_2d
     from sstem_tpu_torch.tools import probe_dma_conv, probe_gather
@@ -1625,20 +1713,35 @@ def time_probe_kernels(gen, err):
     for axis, rows, cols in probe_gather.GATHER_CASES:
         src, idx = probe_gather.gather_inputs(axis, rows, cols, DEV, gen)
         idx64 = idx.long()
-        out[f"probe_gather[axis={axis} {rows}x{cols}]"] = timing(
-            cuda_ms(lambda: take_along_axis(src, idx, axis), 50, 5),
-            cuda_ms(lambda: take_along_axis_plain(src, idx, axis), 50, 5),
-            cuda_ms(lambda: torch.gather(src, axis, idx64), 50, 5),
-            roofline(12 * rows * cols, 0, F32_FLOP_PER_S))
+        name = f"probe_gather[axis={axis} {rows}x{cols}]"
+        kernel = lambda: take_along_axis(src, idx, axis)
+        library = lambda: torch.gather(src, axis, idx64)
+        ms, library_ms = paired_ms(kernel, library)
+        out[name] = timing(
+            ms, cuda_ms(lambda: take_along_axis_plain(src, idx, axis), 50, 5),
+            library_ms, roofline(12 * rows * cols, 0, F32_FLOP_PER_S))
+        out[name].update(host_device_split(name, kernel, library))
     for rows, cols in probe_gather.ROLL_CASES:
         src = torch.rand((rows, cols), generator=gen, device=DEV)
         shift = torch.tensor([probe_gather.ROLL_SHIFT], dtype=torch.int32,
                              device=DEV)
-        out[f"probe_roll[{rows}x{cols}]"] = timing(
-            cuda_ms(lambda: roll_dynamic(src, shift), 50, 5),
-            cuda_ms(lambda: roll_dynamic_plain(src, shift), 50, 5),
-            cuda_ms(lambda: torch.roll(src, int(shift.item()), 1), 50, 5),
-            roofline(8 * rows * cols + 4, 0, F32_FLOP_PER_S))
+        name = f"probe_roll[{rows}x{cols}]"
+        kernel = lambda: roll_dynamic(src, shift)
+        library = lambda: torch.roll(src, int(shift.item()), 1)
+        ms, library_ms = paired_ms(kernel, library)
+        out[name] = timing(
+            ms, cuda_ms(lambda: roll_dynamic_plain(src, shift), 50, 5),
+            library_ms, roofline(8 * rows * cols + 4, 0, F32_FLOP_PER_S))
+        out[name].update(host_device_split(name, kernel, library))
+    # the wrappers' floor: the shared launch path alone (ctypes and the
+    # launch; no checks, a preallocated output) and the output's allocation
+    dst = torch.empty_like(src)
+    say(f"launch path host_us (sstem_probe_roll {rows}x{cols}, no checks)",
+        host_us(lambda: _build.launch("sstem_probe_roll", src.get_device(),
+                                      src.data_ptr(), shift.data_ptr(),
+                                      dst.data_ptr(), rows, cols)))
+    say(f"torch.empty_like host_us ({rows}x{cols} f32)",
+        host_us(lambda: torch.empty_like(src)))
     image = rand((1, 1, 1280, 1280), gen)
     v = rand((1, K, 1280, 1280), gen, 2.0 / K)
     h = rand((1, K, 1280, 1280), gen, 2.0 / K)

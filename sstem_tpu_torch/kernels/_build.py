@@ -11,8 +11,11 @@ which is loaded with ctypes. The build happens at the first call that needs
 a kernel and is cached by a hash of the sources and the flags; importing
 this module needs neither ``nvcc`` nor a GPU.
 
-Every C entry point returns ``cudaGetLastError()`` after its launch, as an
-int; the wrappers raise when it is not 0.
+Every C entry point takes the CUDA stream as its last argument and returns
+``cudaGetLastError()`` after its launch, as an int. The wrappers launch
+through ``launch``, which resolves each entry point once, passes the
+current stream's raw handle, switches the device only when the tensors'
+device is not the current one, and raises when the int is not 0.
 """
 
 import ctypes
@@ -24,6 +27,8 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
@@ -73,6 +78,15 @@ _ENTRY_POINTS = {
 }
 
 _lib = None
+_entries = {}  # name -> the library's ctypes function, resolved once
+# The launch path reads torch's current device and the current stream's raw
+# handle through two private calls of torch._C that build no Python object
+# (torch._C._cuda_getCurrentRawStream is the one Triton's launcher takes;
+# torch.cuda.current_stream() builds a torch.cuda.Stream, which enters a
+# device context of its own, on every call). They are bound at the first
+# launch; tests/test_torch_launch.py fails if torch stops declaring them.
+PRIVATE_CALLS = ("_cuda_getDevice", "_cuda_getCurrentRawStream")
+_current_device = _current_stream = None
 
 
 def _nvcc():
@@ -152,6 +166,31 @@ def library():
     return _lib
 
 
+def _resolve(name):
+    """The C entry point ``name``, resolved once (the first resolution
+    builds and loads the library, and binds ``PRIVATE_CALLS``)."""
+    global _current_device, _current_stream
+    _current_device, _current_stream = (getattr(torch._C, call)
+                                        for call in PRIVATE_CALLS)
+    fn = _entries[name] = getattr(library(), name)
+    return fn
+
+
+def launch(name, device, *args):
+    """Launch the C entry point ``name`` with ``args`` and the current
+    stream of the CUDA device with index ``device``, switching to that
+    device only when it is not the current one; raise as ``check`` does
+    when the entry point reports a CUDA error."""
+    fn = _entries.get(name) or _resolve(name)
+    if device == _current_device():
+        rc = fn(*args, _current_stream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, _current_stream(device))
+    if rc:
+        check(rc, name)
+
+
 def check(rc: int, name: str):
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
@@ -161,22 +200,18 @@ def check(rc: int, name: str):
 
 def require_cuda(name, *tensors):
     """Raise unless every tensor is a contiguous CUDA tensor on one device
-    whose data is 16-byte aligned (the kernels load 16 bytes at a time)."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: inputs on different devices {devices}")
-    device = next(iter(devices))
-    if device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {device}")
+    whose data is 16-byte aligned (the kernels load 16 bytes at a time);
+    return that device's index."""
+    index = tensors[0].get_device()
     for t in tensors:
+        if not t.is_cuda or t.get_device() != index:
+            devices = {t.device for t in tensors}
+            if len(devices) != 1:
+                raise ValueError(f"{name}: inputs on different devices "
+                                 f"{devices}")
+            raise ValueError(f"{name}: unsupported device {tensors[0].device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
-
-
-def stream():
-    """The current CUDA stream, as the int the C entry points take."""
-    import torch
-
-    return torch.cuda.current_stream().cuda_stream
+    return index

@@ -154,11 +154,8 @@ def launch_entry(entry, x, w, scale, shift, act=None, residual=None,
     cout = w.shape[3]
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     res_mode = 0 if residual is None else (1 if residual_pre_affine else 2)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, entry)(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            None if residual is None else residual.data_ptr(), out.data_ptr(),
-            n, h, wd, cin, cout, ACTS[act], res_mode, _build.stream())
-    _build.check(rc, entry)
+    _build.launch(entry, x.get_device(), x.data_ptr(), w.data_ptr(),
+                  scale.data_ptr(), shift.data_ptr(),
+                  None if residual is None else residual.data_ptr(),
+                  out.data_ptr(), n, h, wd, cin, cout, ACTS[act], res_mode)
     return out

@@ -128,11 +128,8 @@ def launch_entry(entry, x, w, scale, shift, act=None, residual=None,
     out = torch.empty((n, 2 * h, 2 * wd, cout), dtype=x.dtype,
                       device=x.device)
     mode = 0 if residual is None else RES_MODES[res_mode]
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, entry)(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            None if residual is None else residual.data_ptr(), out.data_ptr(),
-            n, h, wd, cin, cout, ACTS[act], mode, _build.stream())
-    _build.check(rc, entry)
+    _build.launch(entry, x.get_device(), x.data_ptr(), w.data_ptr(),
+                  scale.data_ptr(), shift.data_ptr(),
+                  None if residual is None else residual.data_ptr(),
+                  out.data_ptr(), n, h, wd, cin, cout, ACTS[act], mode)
     return out

@@ -102,10 +102,6 @@ def launch_entry(entry, x, w3, b3):
     n, hi, wi, cx = x.shape
     cin, k = w3.shape[2:]
     out = torch.empty((n, k, 2 * hi, 2 * wi), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, entry)(x.data_ptr(), w3.data_ptr(), b3.data_ptr(),
-                                 out.data_ptr(), n, hi, wi, cx, cin, k,
-                                 _build.stream())
-    _build.check(rc, entry)
+    _build.launch(entry, x.get_device(), x.data_ptr(), w3.data_ptr(),
+                  b3.data_ptr(), out.data_ptr(), n, hi, wi, cx, cin, k)
     return out

@@ -51,14 +51,11 @@ def pool2x(x, mode="max"):
         raise TypeError(f"pool2x takes bfloat16; got {x.dtype}")
     if x.device.type == "cpu":
         return pool2x_plain(x, mode)
-    _build.require_cuda("pool2x", x)
+    device = _build.require_cuda("pool2x", x)
     n, h, w, c = x.shape
     out = torch.empty((n, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = lib.sstem_pool2x(x.data_ptr(), out.data_ptr(), n, h, w, c,
-                              _MODES[mode], _build.stream())
-    _build.check(rc, "sstem_pool2x")
+    _build.launch("sstem_pool2x", device, x.data_ptr(), out.data_ptr(), n, h,
+                  w, c, _MODES[mode])
     pool2x.launches += 1
     return out
 

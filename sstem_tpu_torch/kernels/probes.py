@@ -15,11 +15,40 @@
 
 CUDA tensors go through the kernels; CPU tensors through the plain versions
 ``tile_copy_plain``, ``take_along_axis_plain`` and ``roll_dynamic_plain``.
+
+The gather and the roll each pick a kernel by shape (``design``): the
+gather along axis 0 reads the source where the indices point, in a 2-D grid
+of row bands by column tiles; the gather along axis 1 and the roll stage
+each row in shared memory, one block a row, so they take rows of at most
+``MAX_STAGED_COLS`` columns on the card. Each moves 16 bytes a thread where
+cols % 4 == 0 and 4 bytes elsewhere.
 """
 
 import torch
 
 from sstem_tpu_torch.kernels import _build
+
+# as csrc/probe_gather.cu and csrc/probe_roll.cu launch them: the axis-0
+# gather's block of BAND_ROWS rows by TILE_GROUPS column groups, the staged
+# kernels' ROW_THREADS threads a row, the columns a thread moves at once
+# where cols % VECTOR_COLS == 0, and the longest staged row
+BAND_ROWS, TILE_GROUPS, ROW_THREADS, VECTOR_COLS = 8, 32, 128, 4
+MAX_STAGED_COLS = 56 * 1024
+
+
+def design(axis, cols):
+    """The kernel that serves a gather along ``axis`` (the roll: axis 1) of
+    rows of ``cols`` columns and the bytes a thread moves at once:
+    ('rows' or 'staged', 16 or 4)."""
+    return ("rows" if axis == 0 else "staged",
+            16 if cols % VECTOR_COLS == 0 else 4)
+
+
+def _staged_fits(name, cols):
+    if cols > MAX_STAGED_COLS:
+        raise ValueError(f"{name} stages a row in shared memory and takes at "
+                         f"most {MAX_STAGED_COLS} columns on the card; got "
+                         f"{cols}")
 
 
 def tile_copy_plain(x, ty=4):
@@ -44,15 +73,12 @@ def tile_copy(x, ty=4):
                          f"{tuple(x.shape)}, ty={ty}")
     if x.device.type == "cpu":
         return tile_copy_plain(x, ty)
-    _build.require_cuda("tile_copy", x)
+    device = _build.require_cuda("tile_copy", x)
     out = torch.empty_like(x)
     total = x.numel() * x.element_size()
     slab = ty * (total // x.shape[0])
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = lib.sstem_probe_copy(x.data_ptr(), out.data_ptr(), total, slab,
-                                  _build.stream())
-    _build.check(rc, "sstem_probe_copy")
+    _build.launch("sstem_probe_copy", device, x.data_ptr(), out.data_ptr(),
+                  total, slab)
     tile_copy.launches += 1
     return out
 
@@ -100,16 +126,15 @@ def take_along_axis(src, idx, axis):
     if idx.shape != src.shape:
         raise ValueError(f"take_along_axis wants idx of src's shape "
                          f"{tuple(src.shape)}; got {tuple(idx.shape)}")
-    if src.device.type == "cpu":
+    if not src.is_cuda and src.device.type == "cpu":
         return take_along_axis_plain(src, idx, axis)
-    _build.require_cuda("take_along_axis", src, idx)
+    device = _build.require_cuda("take_along_axis", src, idx)
+    rows, cols = src.shape
+    if axis == 1:
+        _staged_fits("take_along_axis along axis 1", cols)
     out = torch.empty_like(src)
-    lib = _build.library()
-    with torch.cuda.device(src.device):
-        rc = lib.sstem_probe_gather(src.data_ptr(), idx.data_ptr(),
-                                    out.data_ptr(), *src.shape, axis,
-                                    _build.stream())
-    _build.check(rc, "sstem_probe_gather")
+    _build.launch("sstem_probe_gather", device, src.data_ptr(),
+                  idx.data_ptr(), out.data_ptr(), rows, cols, axis)
     take_along_axis.launches += 1
     return out
 
@@ -136,15 +161,14 @@ def roll_dynamic(src, shift):
     if shift.numel() != 1:
         raise ValueError(f"roll_dynamic wants a one-element shift; got "
                          f"{tuple(shift.shape)}")
-    if src.device.type == "cpu":
+    if not src.is_cuda and src.device.type == "cpu":
         return roll_dynamic_plain(src, shift)
-    _build.require_cuda("roll_dynamic", src, shift)
+    device = _build.require_cuda("roll_dynamic", src, shift)
+    rows, cols = src.shape
+    _staged_fits("roll_dynamic", cols)
     out = torch.empty_like(src)
-    lib = _build.library()
-    with torch.cuda.device(src.device):
-        rc = lib.sstem_probe_roll(src.data_ptr(), shift.data_ptr(),
-                                  out.data_ptr(), *src.shape, _build.stream())
-    _build.check(rc, "sstem_probe_roll")
+    _build.launch("sstem_probe_roll", device, src.data_ptr(),
+                  shift.data_ptr(), out.data_ptr(), rows, cols)
     roll_dynamic.launches += 1
     return out
 

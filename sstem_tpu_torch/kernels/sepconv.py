@@ -150,16 +150,11 @@ def launch_entry(entry, image, vertical, horizontal):
     launches through it, and chip_smoke.py times each design with it."""
     n, c = image.shape[:2]
     k, h, w = vertical.shape[1:]
-    lib = _build.library()
     out = torch.empty((n, c, h, w), dtype=image.dtype, device=image.device)
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(
-            image.data_ptr(), vertical.data_ptr(), horizontal.data_ptr(),
-            out.data_ptr(), n, c, h, w, k,
-            int(image.dtype == torch.bfloat16),
-            int(vertical.dtype == torch.bfloat16), stream)
-    _build.check(rc, entry)
+    _build.launch(entry, image.get_device(), image.data_ptr(),
+                  vertical.data_ptr(), horizontal.data_ptr(), out.data_ptr(),
+                  n, c, h, w, k, int(image.dtype == torch.bfloat16),
+                  int(vertical.dtype == torch.bfloat16))
     return out
 
 
@@ -207,17 +202,13 @@ def launch_bwd_entry(entry, image, vertical, horizontal, grad):
     with it. Returns (dV, dH)."""
     n, c = image.shape[:2]
     k, h, w = vertical.shape[1:]
-    lib = _build.library()
     dv = torch.empty_like(vertical)
     dh = torch.empty_like(horizontal)
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(
-            image.data_ptr(), vertical.data_ptr(), horizontal.data_ptr(),
-            grad.data_ptr(), dv.data_ptr(), dh.data_ptr(), n, c, h, w, k,
-            int(image.dtype == torch.bfloat16),
-            int(vertical.dtype == torch.bfloat16), stream)
-    _build.check(rc, entry)
+    _build.launch(entry, image.get_device(), image.data_ptr(),
+                  vertical.data_ptr(), horizontal.data_ptr(), grad.data_ptr(),
+                  dv.data_ptr(), dh.data_ptr(), n, c, h, w, k,
+                  int(image.dtype == torch.bfloat16),
+                  int(vertical.dtype == torch.bfloat16))
     return dv, dh
 
 

@@ -41,13 +41,9 @@ def serving_warp(im, flow):
     if not (im.is_contiguous() and flow.is_contiguous()):
         raise ValueError("serving_warp: im and flow must be contiguous")
     n, h, w, _ = im.shape
-    lib = _build.library()
     out = torch.empty_like(im)
-    with torch.cuda.device(im.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sstem_warp_bilinear(im.data_ptr(), flow.data_ptr(),
-                                     out.data_ptr(), n, h, w, stream)
-    _build.check(rc, "sstem_warp_bilinear")
+    _build.launch("sstem_warp_bilinear", im.get_device(), im.data_ptr(),
+                  flow.data_ptr(), out.data_ptr(), n, h, w)
     serving_warp.launches += 1
     return out
 

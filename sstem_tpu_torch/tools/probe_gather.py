@@ -30,6 +30,14 @@ GATHER_CASES = ((0, 256, 128), (0, 1288, 128), (0, 256, 1280), (1, 8, 128),
                 (1, 8, 256), (1, 8, 384), (1, 8, 1280), (1, 256, 1280))
 ROLL_CASES = ((8, 128), (8, 1280))
 ROLL_SHIFT = 17
+# the gather and roll kernels' edge cases, each beside a shape branch of
+# kernels/probes.py (design): ("gather", axis, rows, cols) and ("roll",
+# rows, cols, shift). The 4-byte form on both gathers and on the roll; a
+# ragged last row band and column tile (axis 0: 13 rows, 130 and 132
+# columns); one row on each kernel; shift 0 and shift = cols.
+EDGE_CASES = (("gather", 0, 13, 130), ("gather", 1, 8, 130),
+              ("gather", 0, 1, 132), ("gather", 1, 1, 300),
+              ("roll", 8, 130, 0), ("roll", 1, 300, 300))
 
 
 def flow_cases(n, h, w, device, seed=0):

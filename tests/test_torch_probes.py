@@ -157,17 +157,30 @@ def test_tile_copy_matches_dma_copy():
     np.testing.assert_array_equal(want, x)
 
 
-@pytest.mark.parametrize("axis", [0, 1])
-def test_take_along_axis_matches_prim(axis):
-    rows, cols = 8, 128
+# the kernels' edge cases (probe_gather.EDGE_CASES), which phase 16 of
+# chip_smoke.py holds on the card; their indices include -1, rows + cols and
+# -(rows + cols), as phase 16's do
+EDGE_GATHERS = [pytest.param(*c[1:], True, id=f"axis{c[1]}-{c[2]}x{c[3]}")
+                for c in probe_gather.EDGE_CASES if c[0] == "gather"]
+EDGE_ROLLS = [pytest.param(*c[1:], id=f"{c[1]}x{c[2]}-shift{c[3]}")
+              for c in probe_gather.EDGE_CASES if c[0] == "roll"]
+
+
+@pytest.mark.parametrize("axis,rows,cols,inject", [
+    pytest.param(0, 8, 128, False, id="0"),
+    pytest.param(1, 8, 128, False, id="1")] + EDGE_GATHERS)
+def test_take_along_axis_matches_prim(axis, rows, cols, inject):
     rng = np.random.default_rng(axis)
     src = rng.random((rows, cols)).astype(np.float32)
     idx = rng.integers(0, rows if axis == 0 else cols, (rows, cols)).astype(
         np.int32)
+    if inject:
+        idx[0, :3] = [-1, rows + cols, -(rows + cols)]
     want = np.asarray(prim(axis, rows, cols)(jnp.asarray(src),
                                               jnp.asarray(idx)))
     got = take_along_axis(torch.from_numpy(src), torch.from_numpy(idx), axis)
     np.testing.assert_array_equal(got.numpy(), want)
+    assert np.isnan(want).sum() == (2 if inject else 0)
 
 
 def test_take_along_axis_index_modes_match_jnp():
@@ -183,9 +196,10 @@ def test_take_along_axis_index_modes_match_jnp():
     assert np.isnan(got).sum() == 3 and got[0, 3] == 3.0
 
 
-@pytest.mark.parametrize("shift", [17, -3, 130])
-def test_roll_dynamic_matches_prim_roll(shift):
-    rows, cols = 8, 128
+@pytest.mark.parametrize("rows,cols,shift", [
+    pytest.param(8, 128, 17, id="17"), pytest.param(8, 128, -3, id="-3"),
+    pytest.param(8, 128, 130, id="130")] + EDGE_ROLLS)
+def test_roll_dynamic_matches_prim_roll(rows, cols, shift):
     src = np.random.default_rng(5).random((rows, cols)).astype(np.float32)
     want = np.asarray(prim_roll(rows, cols)(
         jnp.asarray(src), jnp.asarray([[shift]], jnp.int32)))
