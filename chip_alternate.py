@@ -6,24 +6,28 @@
 Runs chip_smoke.py's end-to-end workloads from the parent checkout
 PARENT_DIR ('p') and from this one ('c') in turn, each run in a process of
 its own started from that checkout's root (so each imports and builds its
-own kernels): the probes' gather and roll at phase 19b's shapes (ms per
-call by CUDA events, the median of 5 rounds of 50 calls that alternate
-with ``torch.gather`` / ``torch.roll`` with the shift read to the host, and
-the host microseconds per call), the interp training step (``full_width_training``: IFNet
-K=51, batch 32 x 256^2, f32 TF32 off), the SFF restore in bf16 on the
-cuDNN path and on the packed path with fused head tails
-(``full_size_run``, 25 x 1250^2, 12 sections), and the SP restore on both
-paths (``sp_full_width``, 6 quartets of 1250^2, batch 2), in the order
-parent, change, change, parent. Each run's full output goes to
-``build/alternate/``; the summary prints each metric's value in
-every run, in order, and the mean of the change's runs minus the mean of
-the parent's. Make the parent checkout with
+own kernels): the probes' tile copy at phase 19b's shapes (ms per call by
+CUDA events, the median of 5 rounds of 50 calls that alternate with
+``y.copy_(x)``), gather and roll (alternating likewise with
+``torch.gather`` / ``torch.roll`` with the shift read to the host, and the
+host microseconds per call), the interp training step
+(``full_width_training``: IFNet K=51, batch 32 x 256^2, f32 TF32 off), the
+SFF restore in bf16 on the cuDNN path and on the packed path with fused
+head tails (``full_size_run``, 25 x 1250^2, 12 sections), and the SP
+restore (``sp_full_width``, 6 quartets of 1250^2, batch 2) on every path
+the tree's chip_smoke.py has (``SP_PATHS``: the served paths; a tree
+without it runs the cuDNN and packed paths), in the order parent, change,
+change, parent. Each run's full output goes to ``build/alternate/``; the
+summary prints each metric's value in every run, in order (None where a
+tree lacks the path), and the mean of the change's runs minus the mean of
+the parent's where both trees ran it. Make the parent checkout with
 ``git archive <commit> | tar -x -C PARENT_DIR``, in a directory that
 .gitignore lists.
 """
 
 import os
 import re
+import statistics
 import subprocess
 import sys
 
@@ -67,6 +71,16 @@ def host_us(fn, reps=200):
     return us
 
 gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+from sstem_tpu_torch.kernels import tile_copy
+from sstem_tpu_torch.tools import probe_dma_conv as pdc
+for label, shape in pdc.COPY_SHAPES:
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    y = torch.empty_like(x)
+    ms = paired(lambda: tile_copy(x, pdc.COPY_TY), lambda: y.copy_(x))
+    name = f"probe copy {'x'.join(map(str, shape))} bf16"
+    cs.say(f"{name} ms_per_call", ms[0])
+    cs.say(f"{name} copy_ ms_per_call", ms[1])
+    del x, y
 for axis, rows, cols in pg.GATHER_CASES:
     src, idx = pg.gather_inputs(axis, rows, cols, "cuda", gen)
     idx64 = idx.long()
@@ -98,7 +112,7 @@ sp = torch.from_numpy(synth_stack(4 * cs.SP_QUARTETS, cs.SP_SIZE, cs.SP_SIZE,
 rng = np.random.default_rng(3)
 masks = torch.from_numpy(
     (rng.random(tuple(sp.shape)) > 0.8).astype(np.uint8) * 255).to("cuda")
-for path in ("cudnn", "packed"):
+for path in getattr(cs, "SP_PATHS", ("cudnn", "packed")):
     cs.sp_full_width(path, sp, masks)
 """
 
@@ -112,7 +126,7 @@ METRICS = re.compile(
     r"|train profile idle share"
     r"|full bfloat16 \S+ ms_per_section \(median of 5\)"
     r"|sp full \S+ \S+ ms_per_quartet \(median of 5\)"
-    r"|probe (?:gather|roll) .*?(?:ms|host_us)_per_call) = (\S+)")
+    r"|probe (?:copy|gather|roll) .*?(?:ms|host_us)_per_call) = (\S+)")
 
 
 def run(root, label):
@@ -152,12 +166,13 @@ def main(argv):
         print(f"run {label} done", flush=True)
     order = " ".join("parent" if t == "p" else "change" for t, _ in results)
     print(f"order: {order}  [{gpu}]")
-    for key in results[0][1]:
+    for key in dict.fromkeys(k for _, r in results for k in r):
         values = [r.get(key) for _, r in results]
-        mean = {t: sum(r[key] for tt, r in results if tt == t)
-                / sum(tt == t for tt, _ in results) for t in "pc"}
-        print(f"{key} = {values}; change - parent {mean['c'] - mean['p']}"
-              f"  [{gpu}]")
+        got = {t: [r[key] for tt, r in results if tt == t and key in r]
+               for t in "pc"}
+        diff = (f"change - parent {statistics.mean(got['c']) - statistics.mean(got['p'])}"
+                if got["c"] and got["p"] else "one tree only")
+        print(f"{key} = {values}; {diff}  [{gpu}]")
     return 0
 
 

@@ -49,26 +49,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      same call, the plain version, the bound, the bare cuDNN call and (conv)
      cuDNN with the epilogue as separate ops, and the launches per group;
      then the pool, and the head tail (both designs) beside theirs
- 16. the probe kernels (tile copy, gather, dynamic roll; exact, the gather
-     and roll also at the edge cases of tools/probe_gather.py: EDGE_CASES)
-     and conv3x3 at every SP path signature (SP_CONV_CHECKS) vs their plain
+ 16. the probe kernels (tile copy, gather, dynamic roll; exact, the tile
+     copy also at tools/probe_dma_conv.py: COPY_EDGE_CASES, the gather and
+     roll at the edge cases of tools/probe_gather.py: EDGE_CASES) and
+     conv3x3 at every SP path signature (SP_CONV_CHECKS) vs their plain
      versions
- 17. SPPipeline.restore on the card vs on the CPU (K=51, two quartets of
-     150 x 170): float32 with TF32 off, and the packed_conv=True path in
-     bfloat16 on both sides
+ 17. the SP restore on the card vs on the CPU (K=51, two quartets of
+     150 x 170): SPPipeline in float32 with TF32 off, and in bfloat16 on
+     both sides the packed path and the served path (``ServedSP``: the
+     two-frame ``ifnet_serve`` and the U-Nets' serving forwards, head tails
+     on cuDNN and on the head-tail kernel)
  18. full width SP: bench_sp.py's workload (6 quartets of 1250^2, batch 2,
-     K=51, bfloat16) on the cuDNN and the packed path: launch counts per
-     batch asserted, signatures checked, ms/quartet, MP/s, peak memory, one
-     run under torch.profiler each; then every conv3x3 shape of the SP
-     packed path timed as in phase 15, the SP pool, and the SP sepconv
-     with both designs
+     K=51, bfloat16) on the cuDNN, the packed and the two served paths
+     (SP_PATHS): launch counts per batch asserted, signatures checked,
+     ms/quartet, MP/s, peak memory, one run under torch.profiler each; then
+     every conv3x3 shape of the SP served path timed as in phase 15, the
+     SP pool, the SP sepconv and the SP head tail with both designs
  19. the probes through their entry points (probe_dma_conv, probe_gather
      --parity and --bench, micro_bench) with launch counts asserted and
      micro_bench's sepconv signature checked, then each probe kernel at the
      JAX probes' shapes beside its plain version, its library call and its
-     bound (CUDA events; the sepconv with both designs); the gather and
-     roll, and torch.gather / torch.roll beside them, timed in alternating
-     rounds and split into host and device microseconds per call
+     bound (CUDA events; the sepconv with both designs); the tile copy,
+     gather and roll, and copy_ / torch.gather / torch.roll beside them,
+     timed in alternating rounds and split into host and device
+     microseconds per call
+ 20. the SFF inference CLIs: ``infer_interp.main`` then
+     ``infer_fusion.main`` on a 9 x 1250^2 stack written as PNGs, 4
+     damaged sections, seeded reference-format checkpoints, on the float32
+     path and with --packed-conv, each twice: launch counts asserted
+     (sepconv 2 and warp 1 per section), output shapes, and the average
+     inference time per section
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -248,7 +258,8 @@ PATH_LAUNCHES = {
 
 # The conv3x3_fused and deconv2x_fused signatures (n, h, w, cin, cout, act,
 # residual) that the packed paths launch at full width: the SFF restore on
-# its 1280^2 canvas, 4 sections a group; the SP restore at 1280^2, batch 2.
+# its 1280^2 canvas, 4 sections a group; the SP restore at 1280^2, batch 2
+# (the served path's two-frame IFNet first, then the U-Nets').
 # Phases 12 and 16 hold the kernel against its plain version at each, and
 # phases 15 and 18b time each (n, h, w, cin, cout, residual).
 # tests/test_torch_conv_shapes.py runs the packed serving forwards on the
@@ -269,6 +280,10 @@ SFF_CONV_CHECKS = (
     (4, 640, 640, 64, 64, "relu", "pre"), (4, 640, 640, 64, K, "relu", None),
 )
 SP_CONV_CHECKS = (
+    (2, 1280, 1280, 2, 6, "relu", None), (2, 1280, 1280, 6, 6, "relu", None),
+    (2, 1280, 1280, 6, 32, "relu", None), (2, 640, 640, 32, 32, "relu", None),
+    (2, 640, 640, 32, 64, "relu", None), (2, 640, 640, 64, 64, "relu", None),
+    (2, 640, 640, 64, K, "relu", None),
     (2, 1280, 1280, 1, 64, "relu", None), (2, 1280, 1280, 64, 64, "relu", None),
     (2, 1280, 1280, 64, 64, None, None), (2, 1280, 1280, 64, 64, "relu", "pre"),
     (2, 1280, 1280, 64, 1, None, None),
@@ -299,7 +314,8 @@ ODD_DECONV_CHECKS = (
 # and the head tail's (n, hi, wi, cx, k) that the paths launch at full
 # width: the SFF restore in bfloat16 (both paths) and float32, 4 sections a
 # group, its fused head tails on the 640^2 features; the SP restore, batch
-# 2; the training step, 32 x 256^2; micro_bench. Then the remaining dtype
+# 2 (the served path's fused head tails); the training step, 32 x 256^2;
+# micro_bench. Then the remaining dtype
 # pair, K = 5 and 11, and odd sizes and channel counts that take the first
 # designs (sepconv W % 4 != 0; head tail Cx % 8 != 0) or the edges of the
 # new ones. Phases 3, 11 and 12 hold both designs against the plain version
@@ -321,7 +337,7 @@ SEPCONV_CHECKS = (
     (2, 3, 251, 179, K, "bfloat16", "bfloat16"),
 )
 HEAD_TAIL_CHECKS = (
-    (4, 640, 640, 64, K),
+    (4, 640, 640, 64, K), (2, 640, 640, 64, K),
     (2, 37, 52, 56, K), (1, 9, 4, 64, K), (2, 20, 40, 64, 56),
     (2, 37, 53, K, K), (2, 37, 53, 64, K),
 )
@@ -899,7 +915,7 @@ def cuda_ms(fn, reps, warmup=1):
 
 # kernel-name fragments of the probes' split (phase 19b) -> kind
 PROBE_KINDS = (
-    ("probe_gather", "gather kernel"), ("probe_roll", "roll kernel"),
+    ("probe_copy", "copy kernel"), ("probe_gather", "gather kernel"), ("probe_roll", "roll kernel"),
     ("scatter_gather", "torch.gather kernel"),
     ("roll_cuda", "torch.roll kernel"), ("memcpy", "copies"),
 )
@@ -1264,8 +1280,6 @@ def time_new_kernels(gen, calls, maps, units):
 
     from sstem_tpu_torch.kernels import pool2x, pool2x_plain
 
-    ht = head_tail_module()
-
     out = time_conv_rows(timing_rows(SFF_CONV_CHECKS), gen, calls, units)
     out.update(time_deconv_rows(timing_rows(DECONV_CHECKS), gen, calls, units))
     x = randn((4, 1280, 1280, 32), gen)
@@ -1277,7 +1291,21 @@ def time_new_kernels(gen, calls, maps, units):
             cuda_ms(lambda: lib(x.permute(0, 3, 1, 2), 2), 50, 3),
             roofline(nbytes, 4 * 640 * 640 * 32 * 4, F32_FLOP_PER_S))
     del x
-    x, w3, b3 = head_tail_inputs(4, 640, 640, 64, K, gen)
+    out[f"head_tail[K{K}@4x640^2]"] = time_head_tail(4, gen, maps, units)
+    for name in ("pool2x[max]", "pool2x[avg]", f"head_tail[K{K}@4x640^2]"):
+        say_timing(name, out[name])
+    return out
+
+
+def time_head_tail(n, gen, maps, units):
+    """The head tail at (n, 640^2, 64 channels, K) by CUDA events, with
+    both designs, beside its plain version, the upsample and conv as
+    PyTorch calls and its bound; its launches per unit from the recorded
+    ``maps`` of a path run over ``units`` units."""
+    import torch.nn.functional as F
+
+    ht = head_tail_module()
+    x, w3, b3 = head_tail_inputs(n, 640, 640, 64, K, gen)
     w3_oihw = w3.permute(3, 2, 0, 1).contiguous()
     b3_bf = b3.to(torch.bfloat16)
 
@@ -1286,8 +1314,8 @@ def time_new_kernels(gen, calls, maps, units):
                            scale_factor=2, mode="bilinear", align_corners=True)
         return F.conv2d(up, w3_oihw, b3_bf, padding=1)
 
-    nbytes = 2 * (4 * 640 * 640 * 64 + 9 * K * K + 4 * K * 1280 * 1280) + 4 * K
-    flop = 2 * 4 * 1280 * 1280 * K * K * 9
+    nbytes = 2 * (n * 640 * 640 * 64 + 9 * K * K + n * K * 1280 * 1280) + 4 * K
+    flop = 2 * n * 1280 * 1280 * K * K * 9
     t = timing(
         cuda_ms(lambda: ht.launch_entry("sstem_head_tail", x, w3, b3), 10, 2),
         cuda_ms(lambda: ht.head_tail_plain(x, w3, b3), 3),
@@ -1295,12 +1323,8 @@ def time_new_kernels(gen, calls, maps, units):
     t.update(design=ht.design(640, 64, K),
              mma_ms=cuda_ms(lambda: ht.launch_entry(ht.ENTRY_POINTS["mma"], x,
                                                     w3, b3), 10, 2),
-             launches_per_unit=maps[("head_tail", 4, 640, 640, 64, K)] / units)
-    out["head_tail[K51@4x640^2]"] = t
-    del x
-    for name in ("pool2x[max]", "pool2x[avg]", "head_tail[K51@4x640^2]"):
-        say_timing(name, out[name])
-    return out
+             launches_per_unit=maps[("head_tail", n, 640, 640, 64, K)] / units)
+    return t
 
 
 def group_input(stack, ids):
@@ -1396,17 +1420,15 @@ def he_init_(module, gen):
 _SP_MODELS = {}
 
 
-def build_sp_pipeline(device, dtype, seed=SEED, kernel_size=K,
-                      packed_conv=False):
-    """SPPipeline on seeded random weights: IFNet(K, n_frames=2) with each
-    kernel head's last conv rescaled as ``build_pipeline`` does, UNetSP and
-    FusionNetSP by ``he_init_`` with the 1x1 output conv scaled by 0.1 and
-    its bias set for a mean output of 0.5, so that the outputs are not
-    clipped flat. The models are made once per seed (the
-    orthogonal init takes seconds) and each pipeline gets copies."""
+def sp_models(seed=SEED, kernel_size=K):
+    """Copies of the SP models on seeded random weights: IFNet(K,
+    n_frames=2) with each kernel head's last conv rescaled as
+    ``build_pipeline`` does, UNetSP and FusionNetSP by ``he_init_`` with the
+    1x1 output conv scaled by 0.1 and its bias set for a mean output of 0.5,
+    so that the outputs are not clipped flat. The models are made once per
+    seed (the orthogonal init takes seconds)."""
     import copy
 
-    from sstem_tpu_torch.infer.pipeline import SPPipeline
     from sstem_tpu_torch.models import FusionNetSP, IFNet, UNetSP
     from sstem_tpu_torch.models.ifnet import HEADS
 
@@ -1433,8 +1455,75 @@ def build_sp_pipeline(device, dtype, seed=SEED, kernel_size=K,
                 net.outc.conv.bias.zero_()
                 net.outc.conv.bias.fill_(0.5 - float(net(*args).mean()))
         _SP_MODELS[key] = (vfi, *nets)
-    return SPPipeline(*copy.deepcopy(_SP_MODELS[key]), device=device,
+    return copy.deepcopy(_SP_MODELS[key])
+
+
+class ServedSP:
+    """``bench_sp.py:117-135``'s quartet restore on the serving forwards
+    alone, bf16 on the port's kernels: ``ifnet_serve(n_frames=2)`` on the
+    2-channel pair (clipped), ``unet_sp_serve`` on each degraded section
+    and ``fusionnet_sp_serve`` on the mask blends. The JAX ``SPPipeline``
+    serves its interp as a module, so this composition stays here.
+    ``restore`` takes and returns what ``SPPipeline.restore`` does."""
+
+    def __init__(self, vfi, denoise, fusion, device, fused_head_tail=False):
+        self.device = torch.device(device)
+        self.vfi, self.denoise, self.fusion = (
+            m.to(self.device).eval() for m in (vfi, denoise, fusion))
+        self.fused_head_tail = fused_head_tail
+
+    def _to01(self, img):
+        return torch.as_tensor(img, device=self.device).float() / 255.0
+
+    @torch.inference_mode()
+    def restore(self, img1, img4, deg2, deg3, mask2, mask3):
+        from sstem_tpu_torch.infer.tiles import pad_to_multiple
+        from sstem_tpu_torch.models.serving import (
+            fusionnet_sp_serve, ifnet_serve, unet_sp_serve)
+
+        x, (h, w) = pad_to_multiple(
+            torch.stack([self._to01(img1), self._to01(img4)], -1), 32)
+        vfi = ifnet_serve(self.vfi, x, n_frames=2,
+                          fused_head_tail=self.fused_head_tail).clamp(0.0, 1.0)
+        d2, d3, m2, m3 = (pad_to_multiple(self._to01(t)[..., None], 32)[0]
+                          for t in (deg2, deg3, mask2, mask3))
+        den2 = unet_sp_serve(self.denoise, d2)
+        den3 = unet_sp_serve(self.denoise, d3)
+        p1 = fusionnet_sp_serve(self.fusion, vfi[..., 0:1] * (1 - m2), den2 * m2)
+        p2 = fusionnet_sp_serve(self.fusion, vfi[..., 1:2] * (1 - m3), den3 * m3)
+
+        def crop(t):
+            return t[:, :h, :w, 0].clamp(0.0, 1.0)
+
+        return {"pred1": crop(p1), "pred2": crop(p2),
+                "vfi1": vfi[:, :h, :w, 0], "vfi2": vfi[:, :h, :w, 1],
+                "denoise1": crop(den2), "denoise2": crop(den3)}
+
+
+def build_sp_pipeline(device, dtype, seed=SEED, kernel_size=K,
+                      packed_conv=False):
+    """SPPipeline on ``sp_models``' weights."""
+    from sstem_tpu_torch.infer.pipeline import SPPipeline
+
+    return SPPipeline(*sp_models(seed, kernel_size), device=device,
                       dtype=dtype, packed_conv=packed_conv)
+
+
+# the SP paths: SPPipeline on cuDNN and on the packed U-Nets (its interp a
+# module on both), and the served composition with the head tails on cuDNN
+# and on the head-tail kernel
+SP_PATHS = ("cudnn", "packed", "served", "served_fused_tail")
+
+
+def build_sp_path(path, device):
+    """One of ``SP_PATHS`` in bf16 on ``sp_models``' weights."""
+    from sstem_tpu_torch import config
+
+    if path.startswith("served"):
+        return ServedSP(*sp_models(), device,
+                        fused_head_tail=path == "served_fused_tail")
+    return build_sp_pipeline(device, config.SERVING_DTYPE,
+                             packed_conv=path == "packed")
 
 
 def quartets(stack, masks, base):
@@ -1460,10 +1549,11 @@ SP_PACKED_NRMSE = 0.05
 
 
 def sp_card_vs_cpu():
-    """Phase 17: SPPipeline.restore on the card against the CPU on two
-    quartets of a 150 x 170 stack, in float32 (TF32 off, 1e-3 abs) and on
-    the packed path in bf16 on both sides (NRMSE below SP_PACKED_NRMSE of
-    each output's std)."""
+    """Phase 17: the SP restore on the card against the CPU on two quartets
+    of a 150 x 170 stack: SPPipeline in float32 (TF32 off, 1e-3 abs), and
+    the packed path and the served composition (head tails on cuDNN and on
+    the kernel) in bf16 on both sides (NRMSE below SP_PACKED_NRMSE of each
+    output's std)."""
     from sstem_tpu_torch import config
     from sstem_tpu_torch.data import synth_stack
 
@@ -1474,12 +1564,17 @@ def sp_card_vs_cpu():
     masks[2::4] = torch.from_numpy(
         (rng.random((2, 150, 170)) > 0.8).astype(np.uint8) * 255)
     args = quartets(stack, masks, [0, 4])
-    for dtype, packed in ((config.PARITY_DTYPE, False),
-                          (config.SERVING_DTYPE, True)):
-        label = f"sp card-vs-cpu {str(dtype).removeprefix('torch.')}" + (
-            " packed" if packed else "")
-        outs = [build_sp_pipeline(dev, dtype, packed_conv=packed).restore(
-            *(a.to(dev) for a in args)) for dev in (DEV, "cpu")]
+    for path in ("float32",) + SP_PATHS[1:]:
+        label = f"sp card-vs-cpu {path}"
+        packed = path != "float32"
+
+        def build(dev):
+            if packed:
+                return build_sp_path(path, dev)
+            return build_sp_pipeline(dev, config.PARITY_DTYPE)
+
+        outs = [build(dev).restore(*(a.to(dev) for a in args))
+                for dev in (DEV, "cpu")]
         bad = []
         for key in SP_OUTPUTS:
             a = outs[0][key].float().cpu().double()
@@ -1505,24 +1600,28 @@ def sp_card_vs_cpu():
 
 
 # launches per batch of 2 quartets on the SP paths (models/serving.py and
-# models/ifnet.py): the two-frame IFNet makes 2 sepconvs per frame on both
-# paths; on the packed path each of the 4 U-Net forwards (denoise x2,
-# fusion x2) makes 11 conv3x3 launches (inc 2, down1 2, up3 and up4 a split
-# concat conv of 2 plus conv1, outc 1) and 1 pool (before down1)
+# models/ifnet.py): the two-frame IFNet makes 2 sepconvs per frame on every
+# path; on the packed and served paths each of the 4 U-Net forwards
+# (denoise x2, fusion x2) makes 11 conv3x3 launches (inc 2, down1 2, up3
+# and up4 a split concat conv of 2 plus conv1, outc 1) and 1 pool (before
+# down1); the served IFNet adds 31 conv3x3 launches (conv32 3, conv64 3,
+# upsamp64 1, 8 heads x 3) and 1 avg pool, and, with fused tails, 8 head
+# tails
 SP_LAUNCHES = {"cudnn": {"sepconv_fwd": 4},
-               "packed": {"sepconv_fwd": 4, "conv3x3_fused": 44, "pool2x": 4}}
+               "packed": {"sepconv_fwd": 4, "conv3x3_fused": 44, "pool2x": 4},
+               "served": {"sepconv_fwd": 4, "conv3x3_fused": 75, "pool2x": 5},
+               "served_fused_tail": {"sepconv_fwd": 4, "conv3x3_fused": 75,
+                                     "pool2x": 5, "head_tail": 8}}
 SP_QUARTETS, SP_BATCH, SP_SIZE = 6, 2, 1250
 
 
 def sp_full_width(path, stack, masks):
-    """Phase 18 on one path: the workload bench_sp.py:40-122 defines (6
-    quartets of 1250^2, batch 2, K=51, bf16). Returns (launch counts of one
-    run, ms per quartet, the KernelSignatures of that run, batches)."""
-    from sstem_tpu_torch import config
-
+    """Phase 18 on one of ``SP_PATHS``: the workload bench_sp.py:40-122
+    defines (6 quartets of 1250^2, batch 2, K=51, bf16). Returns (launch
+    counts of one run, ms per quartet, the KernelSignatures of that run,
+    batches)."""
     wrappers = counted_kernels()
-    pipe = build_sp_pipeline("cuda", config.SERVING_DTYPE,
-                             packed_conv=path == "packed")
+    pipe = build_sp_path(path, "cuda")
     batches = [list(range(b, b + 4 * SP_BATCH, 4))
                for b in range(0, 4 * SP_QUARTETS, 4 * SP_BATCH)]
 
@@ -1585,6 +1684,27 @@ def check_exact(label, got, want):
     return 0.0
 
 
+def check_copy(gen):
+    """The tile copy bit-exact against its plain version at the probe's
+    shapes and at ``tools/probe_dma_conv.py: COPY_EDGE_CASES``."""
+    from sstem_tpu_torch.kernels import tile_copy, tile_copy_plain
+    from sstem_tpu_torch.tools import probe_dma_conv
+
+    cases = [(name, shape, "bfloat16", probe_dma_conv.COPY_TY)
+             for name, shape in probe_dma_conv.COPY_SHAPES]
+    for name, shape, dtype, ty in cases + list(probe_dma_conv.COPY_EDGE_CASES):
+        dt = getattr(torch, dtype)
+        if dt.is_floating_point:
+            x = randn(shape, gen, dtype=dt)
+        else:
+            x = torch.randint(-128 if dt == torch.int8 else 0,
+                              128 if dt == torch.int8 else 256, shape,
+                              generator=gen, device=DEV, dtype=dt)
+        check_exact(f"probe_copy {tuple(shape)} {dtype} ty={ty} "
+                    f"({' '.join(name.split()[:2])})",
+                    tile_copy(x, ty), tile_copy_plain(x, ty))
+
+
 def check_probe_kernels(gen):
     """Phase 16: the probe kernels (exact) and conv3x3_fused at every SP
     path signature (1 bf16 ulp + 2^-14 of the max) against their plain
@@ -1592,20 +1712,12 @@ def check_probe_kernels(gen):
     for the gather and the roll, at every EDGE_CASES row."""
     from sstem_tpu_torch.kernels import (
         roll_dynamic, roll_dynamic_plain, take_along_axis,
-        take_along_axis_plain, tile_copy, tile_copy_plain)
-    from sstem_tpu_torch.tools import probe_dma_conv, probe_gather
+        take_along_axis_plain)
+    from sstem_tpu_torch.tools import probe_gather
 
     err = {"pool2x": check_pool(2, 1280, 1280, 64, "max", gen),
            "conv3x3_fused": max(check_conv(*c, gen) for c in SP_CONV_CHECKS)}
-    for _, shape in probe_dma_conv.COPY_SHAPES + (("odd", (7, 13, 3)),):
-        x = randn(shape, gen)
-        check_exact(f"probe_copy {shape}", tile_copy(x, probe_dma_conv.COPY_TY),
-                    tile_copy_plain(x))
-    for _, shape in (("odd bytes", (1001,)),):
-        x = torch.randint(0, 256, shape, generator=gen, device=DEV,
-                          dtype=torch.uint8)
-        check_exact(f"probe_copy uint8 {shape} ty=3", tile_copy(x, 3),
-                    tile_copy_plain(x))
+    check_copy(gen)
     edges = probe_gather.EDGE_CASES
     for axis, rows, cols in probe_gather.GATHER_CASES + tuple(
             c[1:] for c in edges if c[0] == "gather"):
@@ -1680,23 +1792,13 @@ def time_probe_kernels(gen, err):
     from sstem_tpu_torch.kernels import (
         conv3x3_fused, conv3x3_fused_plain, fold_affine, roll_dynamic,
         roll_dynamic_plain, sepconv_planar, sepconv_planar_plain,
-        take_along_axis, take_along_axis_plain, tile_copy, tile_copy_plain)
+        take_along_axis, take_along_axis_plain)
     from sstem_tpu_torch.kernels import _build
     from sstem_tpu_torch.kernels import sepconv as sc
     from sstem_tpu_torch.ops import replication_pad_2d
     from sstem_tpu_torch.tools import probe_dma_conv, probe_gather
 
-    out = {}
-    for label, shape in probe_dma_conv.COPY_SHAPES:
-        x = randn(shape, gen)
-        y = torch.empty_like(x)
-        nbytes = 2 * x.numel() * x.element_size()
-        name = f"probe_copy[{'x'.join(map(str, shape))} bf16]"
-        out[name] = timing(cuda_ms(lambda: tile_copy(x, probe_dma_conv.COPY_TY), 20, 3),
-                           cuda_ms(lambda: tile_copy_plain(x), 20, 3),
-                           cuda_ms(lambda: y.copy_(x), 20, 3),
-                           roofline(nbytes, 0, BF16_FLOP_PER_S))
-        del x, y
+    out = time_copy(gen)
     for c, co, hw in probe_dma_conv.CONV_CASES:
         x = randn((1, hw, hw, c), gen)
         wt = randn((3, 3, c, co), gen, 1.0 / (3 * c))
@@ -1763,11 +1865,43 @@ def time_probe_kernels(gen, err):
     return out
 
 
+def time_copy(gen):
+    """Phase 19b's tile copy at the probe's shapes: the kernel and
+    ``Tensor.copy_`` into a preallocated output in alternating rounds
+    (``paired_ms``; the wrapper allocates its output in each call, which
+    the caching allocator serves on the host while the device copies), the
+    plain version, the bound, the achieved rate and share of the bound, and
+    the host and device microseconds per call of both
+    (``host_device_split``). Returns {name: timing dict}."""
+    from sstem_tpu_torch.kernels import tile_copy, tile_copy_plain
+    from sstem_tpu_torch.tools import probe_dma_conv
+
+    out = {}
+    ty = probe_dma_conv.COPY_TY
+    for _, shape in probe_dma_conv.COPY_SHAPES:
+        x = randn(shape, gen)
+        y = torch.empty_like(x)
+        nbytes = 2 * x.numel() * x.element_size()
+        name = f"probe_copy[{'x'.join(map(str, shape))} bf16]"
+        kernel = lambda: tile_copy(x, ty)
+        library = lambda: y.copy_(x)
+        ms, library_ms = paired_ms(kernel, library, rounds=5, reps=50)
+        t = out[name] = timing(ms, cuda_ms(lambda: tile_copy_plain(x), 20, 3),
+                               library_ms, roofline(nbytes, 0, BF16_FLOP_PER_S))
+        say(f"{name} GB/s (read + write)", nbytes / ms / 1e6)
+        say(f"{name} share of bound", t["bound_ms"] / ms)
+        say(f"{name} copy_ share of bound", t["bound_ms"] / library_ms)
+        t.update(host_device_split(name, kernel, library))
+        del x, y
+    return out
+
+
 def time_sp_kernels(gen, sig, batches):
-    """Phase 18b: conv3x3 at every full-width shape of the SP packed path
-    (time_conv_rows; ``sig``: the packed path's recorded signatures over
-    ``batches`` batches), the SP pool beside its plain version,
-    F.max_pool2d and its bound, and the SP sepconv with both designs."""
+    """Phase 18b: conv3x3 at every full-width shape of the SP served path
+    (time_conv_rows; ``sig``: the served path's recorded signatures, fused
+    head tails, over ``batches`` batches), the SP pool beside its plain
+    version, F.max_pool2d and its bound, the SP sepconv with both designs
+    and the SP head tail with both (``time_head_tail``)."""
     import torch.nn.functional as F
 
     from sstem_tpu_torch.kernels import pool2x, pool2x_plain
@@ -1787,6 +1921,9 @@ def time_sp_kernels(gen, sig, batches):
         roofline(2 * x.numel() * 5 // 4, x.numel() * 3 // 4, F32_FLOP_PER_S))
     del x
     say_timing("pool2x[max C64@2x1280^2]", out["pool2x[max C64@2x1280^2]"])
+    name = f"head_tail[K{K}@{SP_BATCH}x640^2]"
+    out[name] = time_head_tail(SP_BATCH, gen, sig.maps, batches)
+    say_timing(name, out[name])
     return out
 
 
@@ -1807,21 +1944,136 @@ def sp_and_probe_phases(gen):
     rng = np.random.default_rng(3)
     masks = torch.from_numpy(
         (rng.random(tuple(stack.shape)) > 0.8).astype(np.uint8) * 255).to(DEV)
-    runs = {path: sp_full_width(path, stack, masks)
-            for path in ("cudnn", "packed")}
+    runs = {path: sp_full_width(path, stack, masks) for path in SP_PATHS}
     for path, (_, ms, _, _) in runs.items():
         say(f"sp full bfloat16 {path} ms_per_quartet, this phase", ms)
-    say("sp full packed speedup over cudnn", runs["cudnn"][1] / runs["packed"][1])
-    res["sp_launches"] = runs["packed"][0]
+        if path != "cudnn":
+            say(f"sp full {path} speedup over cudnn", runs["cudnn"][1] / ms)
+    res["sp_launches"] = runs["served_fused_tail"][0]
     del stack, masks
     torch.cuda.empty_cache()
-    _, _, sig, batches = runs["packed"]
+    _, _, sig, batches = runs["served_fused_tail"]
     res["sp_times"] = time_sp_kernels(gen, sig, batches)
 
     phase("19 the probes at their JAX shapes (CUDA events)")
     res["probe_launches"] = run_probes()
     res["probe_times"] = time_probe_kernels(gen, res["err"])
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the SFF inference CLIs
+# ---------------------------------------------------------------------------
+
+CLI_SIZE, CLI_SECTIONS, CLI_IDS = 1250, 9, (1, 3, 5, 7)
+
+
+def write_cli_case(root):
+    """The SFF CLIs' inputs under ``root``: a synth_stack of CLI_SECTIONS
+    sections of CLI_SIZE^2 as %04d.png in data/sff, data/sff.txt with
+    CLI_IDS, a config (TRAIN.kernel_size K, TRAIN.ngf 32, TEST.pad 0) and
+    build_pipeline's seeded IFNet(K), FusionNet and UNetSFF as reference
+    checkpoints (``model_weights`` with ``module.`` prefixes). Returns the
+    arguments both CLIs share, without -op."""
+    from PIL import Image
+
+    from sstem_tpu_torch import config
+    from sstem_tpu_torch.data import synth_stack
+
+    data = os.path.join(root, "data", "sff")
+    os.makedirs(data)
+    for i, img in enumerate(synth_stack(CLI_SECTIONS, CLI_SIZE, CLI_SIZE,
+                                       seed=SEED)):
+        Image.fromarray(img).save(os.path.join(data, f"{i:04d}.png"))
+    with open(os.path.join(root, "data", "sff.txt"), "w") as f:
+        f.write(" ".join(map(str, CLI_IDS)))
+    cfg = os.path.join(root, "cfg.yaml")
+    with open(cfg, "w") as f:
+        f.write(f"TRAIN:\n  kernel_size: {K}\n  ngf: 32\nTEST:\n  pad: 0\n")
+    pipe = build_pipeline("cpu", config.PARITY_DTYPE)
+    for name in ("interp", "flow", "fusion"):
+        model = getattr(pipe, f"{name}_model")
+        torch.save({"model_weights": {f"module.{k}": v for k, v in
+                                      model.state_dict().items()}},
+                   os.path.join(root, f"{name}.pth"))
+    return ["-c", cfg, "-ip", os.path.join(root, "data"), "-t", "sff",
+            "-m", "valid"]
+
+
+def run_cli(label, main, argv, want):
+    """One CLI ``main(argv)`` on the card with every restore kernel's count
+    set to 0 just before: asserts the launches ``want`` ({kernel: count},
+    the others 0), echoes the CLI's output and returns it."""
+    import contextlib
+    import io
+
+    wrappers = counted_kernels()
+    for fn in wrappers.values():
+        fn.launches = 0
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        main(argv)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    print(text.getvalue(), end="", flush=True)
+    for k, n in launches.items():
+        if n:
+            say(f"{label} {k} launches", n)
+    assert launches == {k: want.get(k, 0) for k in wrappers}, (label, launches)
+    return text.getvalue()
+
+
+def sff_cli_phase():
+    """Phase 20: ``infer_interp.main`` then ``infer_fusion.main`` (through
+    their argv) on the card at CLI_SIZE^2, one section a call, on the
+    default float32 path and with ``--packed-conv`` (bf16, fused-conv
+    serving forwards), each configuration twice (the first run of a
+    process pays cuDNN's and the kernels' first calls): sepconv 2 and warp
+    1 launches per section asserted (conv3x3, pool and deconv on the packed
+    path by the per-net counts of PATH_LAUNCHES), every PNG's shape, and the
+    average inference time per section that infer_fusion prints."""
+    import re
+
+    from PIL import Image
+
+    from sstem_tpu_torch.cli import infer_fusion, infer_interp
+
+    root = os.path.join(OUT, "sff_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    common = write_cli_case(root)
+    n = len(CLI_IDS)
+    # per section: IFNet conv3x3 19 and a pool; FusionNet and UNetSFF
+    # conv3x3 31, 2 pools and 4 deconvs (PATH_LAUNCHES["packed"] less IFNet)
+    packed_interp = {"conv3x3_fused": 19 * n, "pool2x": n}
+    packed_fusion = {"conv3x3_fused": 31 * n, "pool2x": 2 * n,
+                     "deconv2x_fused": 4 * n}
+    for label, flags in (("float32", []), ("packed bf16", ["--packed-conv"])):
+        for run in (1, 2):
+            out = os.path.join(root, f"out_{'packed' if flags else 'f32'}")
+            name = f"sff cli {label} run {run}"
+            run_cli(f"{name} infer_interp", infer_interp.main,
+                    common + ["-op", out, "--ckpt",
+                              os.path.join(root, "interp.pth"), *flags],
+                    {"sepconv_fwd": 2 * n, **(packed_interp if flags else {})})
+            text = run_cli(
+                f"{name} infer_fusion", infer_fusion.main,
+                common + ["-op", out, "--ckpt", os.path.join(root, "fusion.pth"),
+                          "--flow-ckpt", os.path.join(root, "flow.pth"),
+                          *flags],
+                {"warp_bilinear": n, **(packed_fusion if flags else {})})
+            for folder, shape in (("sff_interp", (CLI_SIZE, CLI_SIZE)),
+                                  ("sff_fusion", (CLI_SIZE, CLI_SIZE)),
+                                  ("sff_fusion_stitching", (CLI_SIZE, CLI_SIZE)),
+                                  ("sff_fusion_flow", (CLI_SIZE, CLI_SIZE, 3))):
+                for i in CLI_IDS:
+                    img = np.asarray(Image.open(
+                        os.path.join(out, folder, f"{i:04d}.png")))
+                    assert img.dtype == np.uint8 and img.shape == shape, (
+                        folder, i, img.shape)
+            avg = float(re.search(r"average inference time: (\S+)",
+                                  text).group(1))
+            say(f"{name} infer_fusion average inference time ms per section "
+                f"({CLI_SIZE}^2, batch 1)", avg * 1e3)
 
 
 SP_KERNELS = (
@@ -1832,6 +2084,8 @@ SP_KERNELS = (
      "sstem_tpu/kernels/conv3x3.py:124", "sp_launches"),
     ("pool2x", "sstem_tpu_torch/csrc/pool2x.cu",
      "sstem_tpu/kernels/pool.py:45", "sp_launches"),
+    ("head_tail", "sstem_tpu_torch/csrc/head_tail.cu",
+     "sstem_tpu/kernels/head_tail.py:174", "sp_launches"),
     ("probe_copy", "sstem_tpu_torch/csrc/probe_copy.cu",
      "tools/probe_dma_conv.py:48", "probe_launches"),
     ("probe_gather", "sstem_tpu_torch/csrc/probe_gather.cu",
@@ -1847,8 +2101,8 @@ SP_KERNELS = (
 
 def sp_kernel_entries(res):
     """JSON entries of phases 16-19, one per timed shape; the launches are
-    the kernel's in the SP packed path's run (phase 18) or in the probes'
-    run (phase 19a), all shapes together."""
+    the kernel's in the SP served path's run with fused head tails (phase
+    18) or in the probes' run (phase 19a), all shapes together."""
     entries = []
     times = {**res["sp_times"], **res["probe_times"]}
     for name, t in times.items():
@@ -2024,6 +2278,9 @@ def main():
     del stack
     sp = sp_and_probe_phases(gen)
 
+    phase(f"20 the SFF inference CLIs at {CLI_SIZE}^2")
+    sff_cli_phase()
+
     kernels = []
     for name, dt in (("f32", "float32"), ("bf16", "bfloat16")):
         kernels.append({
@@ -2058,6 +2315,7 @@ def main():
     kernels += new_kernel_entries(packed)
     sp["err"]["sepconv_fwd[sp"] = sep_err[(SP_BATCH, 1, 1280, 1280, K,
                                            "bfloat16", "bfloat16")]
+    sp["err"]["head_tail"] = packed["err"]["head_tail"]
     kernels += sp_kernel_entries(sp)
     for kern in kernels:
         say(f"{kern['name']} bound_ms ({kern['bound_by']})", kern["bound_ms"])

@@ -1,28 +1,10 @@
 """Shared pieces of the SP test CLIs (``test_sp_interp``, ``test_sp_fusion``):
-checkpoint loading, image reading and writing."""
+image reading and writing (checkpoints: ``cli/_ckpt.py``)."""
 
 import os
 
 import numpy as np
 from PIL import Image
-
-from sstem_tpu_torch.compat import load_reference
-from sstem_tpu_torch.models.layers import skip_init
-from sstem_tpu_torch.train.checkpoint import restore_checkpoint
-
-
-def load_model(build, path):
-    """``build()`` (a module, with no initial values drawn) loaded strictly
-    from a reference-format torch checkpoint: a file, or a directory whose
-    latest ``model-NNNNNN.ckpt`` is taken."""
-    with skip_init():
-        module = build()
-    if os.path.isdir(path):
-        payload = restore_checkpoint(path)
-        if payload is None:
-            raise FileNotFoundError(f"no model-NNNNNN.ckpt under {path}")
-        return load_reference(module, payload)
-    return load_reference(module, path)
 
 
 def read_gray(folder, name):

@@ -22,7 +22,8 @@ import time
 
 import torch
 
-from sstem_tpu_torch.cli._sp import load_model, read_gray, write_png
+from sstem_tpu_torch.cli._ckpt import load_model
+from sstem_tpu_torch.cli._sp import read_gray, write_png
 from sstem_tpu_torch.config import PARITY_DTYPE, SERVING_DTYPE
 from sstem_tpu_torch.infer.pipeline import SPPipeline
 from sstem_tpu_torch.models import FusionNetSP, IFNet, UNetSP

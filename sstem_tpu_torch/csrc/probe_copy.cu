@@ -1,5 +1,4 @@
-// Tile copy through shared memory, device memory -> shared -> device memory,
-// for Hopper (sm_90a): the copy-bandwidth probe.
+// Tile copy for Hopper (sm_90a): the copy-bandwidth probe.
 //
 // Replaces the Pallas TPU kernel tools/probe_dma_conv.py::dma_copy (body
 // copy_kernel): each grid step DMAs a slab of `ty` leading rows of the
@@ -10,123 +9,75 @@
 // once, at 3.35 TB/s: 0.25 ms for the 420 MB of a (1280, 1280, 128) bf16
 // array.
 //
-// Design: the array is taken as bytes. Blocks own slabs of `ty` rows (grid
-// y); the slab's 16-byte-aligned middle is cut into 16 KB pieces, which the
-// blocks of that slab (grid x) share round-robin. A piece goes into shared
-// memory by cp.async (16-byte chunks, the L1-bypassing .cg variant), and
-// the next piece's copy is in flight while the current one is written back
-// (two stages, 32 KB). A slab whose ends are not 16-byte aligned copies its
-// first and last bytes (at most 15 each) one at a time, also through shared
-// memory. A TPU slab of 4 rows of 1280 x 128 bf16 is 1.3 MB, more than a
-// block's shared memory, hence the pieces; a planar (64, 1280, 1280) array
-// has only 16 slabs, hence several blocks per slab.
+// Design, chosen by measurement on the card (PERF.md §6, row 9): the array
+// is taken as bytes; each thread moves one 16-byte chunk (a load by the
+// read-only path with no L1 allocation, a streaming store), each block a
+// contiguous 4 KB tile, and the grid has a block for every tile. The
+// blocks resident at once then work on neighbouring tiles, so the reads
+// and writes sweep the array in order. Designs that moved the data on the
+// bulk copy engine (TMA cp.async.bulk loads into a ring of shared-memory
+// stages and bulk stores out, one issuing thread a block) or that kept a
+// persistent grid came out 1-18% slower than Tensor.copy_: a persistent
+// grid whose blocks each walk a chunk of their own, or a grid-stride
+// range, spreads the concurrent accesses over the whole array; one bulk
+// piece a block on the same sweeping grid stayed 0.8-1.5% behind. The last
+// total % 16 bytes go by byte loads and stores in block 0.
+//
+// The copy does not follow the TPU's slabs of `ty` rows: a slab is the
+// TPU's block layout, not part of the function, and the wrapper only
+// validates `ty`.
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPiece = 16384;            // bytes per piece
-constexpr int kChunks = kPiece / 16;     // 16-byte chunks per piece
+constexpr int kThreads = 256;  // one 16-byte chunk a thread: 4 KB a block
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
+__device__ __forceinline__ uint4 load_nc(const uint4* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// chunks of piece p of the aligned range [a, b) into stage buffer dst
-__device__ __forceinline__ void stage_piece(uint4* dst, const uint8_t* src,
-                                            long long a, long long b,
-                                            long long p) {
-  const long long start = a + p * kPiece;
-  const long long left = (b - start) / 16;
-  const int chunks = left < kChunks ? static_cast<int>(left) : kChunks;
-  for (int i = threadIdx.x; i < chunks; i += kThreads) {
-    cp_async16(dst + i, src + start + 16LL * i);
-  }
+__device__ __forceinline__ void store_cs(uint4* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 __global__ void __launch_bounds__(kThreads)
-probe_copy_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
-                  long long total, long long slab) {
-  __shared__ __align__(16) uint4 buf[2][kChunks];
-  __shared__ uint8_t bytes[32];
-  const long long s0 = blockIdx.y * slab;
-  const long long s1 = s0 + slab < total ? s0 + slab : total;
-  long long a = (s0 + 15) / 16 * 16;
-  if (a > s1) a = s1;
-  long long b = s1 / 16 * 16;
-  if (b < a) b = a;
-  const long long pieces = (b - a + kPiece - 1) / kPiece;
-
-  long long p = blockIdx.x;
-  if (p < pieces) stage_piece(buf[0], src, a, b, p);
-  cp_async_commit();
-  for (int stage = 0; p < pieces; p += gridDim.x, stage ^= 1) {
-    const long long next = p + gridDim.x;
-    if (next < pieces) stage_piece(buf[stage ^ 1], src, a, b, next);
-    cp_async_commit();
-    cp_async_wait<1>();  // piece p has landed (this thread's chunks)
-    __syncthreads();     // ... and every thread's
-    const long long start = a + p * kPiece;
-    const long long left = (b - start) / 16;
-    const int chunks = left < kChunks ? static_cast<int>(left) : kChunks;
-    uint4* out = reinterpret_cast<uint4*>(dst + start);
-    for (int i = threadIdx.x; i < chunks; i += kThreads) out[i] = buf[stage][i];
-    __syncthreads();  // the stage is free for the copy after next
-  }
-  cp_async_wait<0>();
-
-  // the slab's unaligned head [s0, a) and tail [b, s1), byte by byte
-  if (blockIdx.x == 0) {
-    const int head = static_cast<int>(a - s0);
-    const int tail = static_cast<int>(s1 - b);
-    const int t = threadIdx.x;
-    if (t < head) bytes[t] = src[s0 + t];
-    else if (t >= 16 && t - 16 < tail) bytes[t] = src[b + t - 16];
-    __syncthreads();
-    if (t < head) dst[s0 + t] = bytes[t];
-    else if (t >= 16 && t - 16 < tail) dst[b + t - 16] = bytes[t];
+probe_copy_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
+                  long long chunks, int tail) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < chunks) store_cs(dst + i, load_nc(src + i));
+  // the bytes past the last whole chunk (at most 15)
+  if (blockIdx.x == 0 && static_cast<int>(threadIdx.x) < tail) {
+    reinterpret_cast<uint8_t*>(dst + chunks)[threadIdx.x] =
+        reinterpret_cast<const uint8_t*>(src + chunks)[threadIdx.x];
   }
 }
 
 }  // namespace
 
-// x -> out, both `total` bytes, 16-byte aligned; slabs of `slab` bytes (ty
-// rows of the array), with about 8 blocks per SM in all.
+// x -> out, both `total` bytes and 16-byte aligned.
 extern "C" int sstem_probe_copy(const void* x, void* out, long long total,
-                                long long slab, void* stream) {
-  if (total < 1 || slab < 1 ||
-      reinterpret_cast<uintptr_t>(x) % 16 ||
+                                void* stream) {
+  if (total < 1 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(out) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long slabs = (total + slab - 1) / slab;
-  if (slabs > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long gx = (8LL * sms + slabs - 1) / slabs;
-  const long long most = (slab + kPiece - 1) / kPiece;  // pieces per slab
-  if (gx > most) gx = most;
-  if (gx < 1) gx = 1;
-  probe_copy_kernel<<<dim3(static_cast<unsigned>(gx),
-                           static_cast<unsigned>(slabs)),
-                      kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out), total, slab);
+  const long long chunks = total / 16;
+  const long long blocks = chunks > 0 ? (chunks + kThreads - 1) / kThreads : 1;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  probe_copy_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(out), chunks,
+      static_cast<int>(total % 16));
   return static_cast<int>(cudaGetLastError());
 }

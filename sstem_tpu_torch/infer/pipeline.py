@@ -68,10 +68,14 @@ class SFFPipeline:
 
     Args:
       interp_model, flow_model, fusion_model: ``IFNet``, ``FusionNet`` and
-        ``UNetSFF`` instances. They are moved to ``device`` and put in eval
-        mode; without ``packed_conv`` their conv weights are cast to
-        ``dtype`` in place (the serving forwards read float32 weights and
-        keep bf16 copies of their own).
+        ``UNetSFF`` instances, or None for a stage the caller does not run
+        (as the JAX pipeline takes ``flow_vars=None``: the interp CLI
+        builds the interp stage alone, the fusion CLI the flow and fusion
+        stages). They are moved to ``device`` and put in eval mode; without
+        ``packed_conv`` their conv weights are cast to ``dtype`` in place
+        (the serving forwards read float32 weights and keep bf16 copies of
+        their own). A method that needs a missing model raises
+        ``ValueError``.
       device: where the models run.
       dtype: compute dtype, ``config.PARITY_DTYPE`` (float32) or
         ``config.SERVING_DTYPE`` (bfloat16).
@@ -99,11 +103,22 @@ class SFFPipeline:
         self.pad = pad
         self.packed_conv = packed_conv
         self.fused_head_tail = fused_head_tail
-        models = [m.to(self.device).eval()
-                  for m in (interp_model, flow_model, fusion_model)]
-        if not packed_conv:
-            models = [set_compute_dtype(m, dtype) for m in models]
+        models = []
+        for m in (interp_model, flow_model, fusion_model):
+            if m is not None:
+                m = m.to(self.device).eval()
+                if not packed_conv:
+                    m = set_compute_dtype(m, dtype)
+            models.append(m)
         self.interp_model, self.flow_model, self.fusion_model = models
+
+    def _need(self, method, *names):
+        """Raise ValueError naming the models that ``method`` needs and
+        this pipeline was built without."""
+        missing = [n for n in names if getattr(self, n) is None]
+        if missing:
+            raise ValueError(f"SFFPipeline.{method} needs {', '.join(missing)}, "
+                             f"which this pipeline was built without")
 
     def _to01(self, img):
         return torch.as_tensor(img, device=self.device).float() / 255.0
@@ -140,6 +155,7 @@ class SFFPipeline:
         Returns float32 (interp, fused, warped) (N, H, W) and flow
         (N, H, W, 2), before clipping and quantization.
         """
+        self._need("section", "interp_model", "flow_model", "fusion_model")
         if self.packed_conv:
             interp = self._interp(torch.stack([x3[:, 0], x3[:, 1]], -1))
             interp = interp.clamp(0.0, 1.0)
@@ -157,6 +173,7 @@ class SFFPipeline:
         returns (N, H, W) on the device, clamped to 0..1 unless ``clip`` is
         False (the reference interp inference casts pred * 255 to uint8
         without clipping)."""
+        self._need("interpolate", "interp_model")
         if self.packed_conv:
             x = torch.stack([self._to01(prev_imgs), self._to01(next_imgs)], -1)
         else:
@@ -182,6 +199,7 @@ class SFFPipeline:
         Returns a dict of device tensors: 'fused', 'warped', 'stitch' in
         0..1 and 'flow' (N, H, W, 2).
         """
+        self._need("restore", "flow_model", "fusion_model")
         if self.packed_conv:
             x = torch.stack([self._to01(degraded_imgs),
                              self._to01(interp_imgs)], -1)
@@ -213,6 +231,8 @@ class SFFPipeline:
         Returns {id: {'interp', 'fused', 'warped', 'stitch', 'flow'}} with
         numpy uint8 images and float32 flow.
         """
+        self._need("restore_stack", "interp_model", "flow_model",
+                   "fusion_model")
         _check_interior(damaged_ids, len(stack))
         dev_stack = torch.as_tensor(np.asarray(stack), device=self.device)
         results = {}
@@ -270,6 +290,8 @@ class SFFPipeline:
         numpy uint8 images and float32 flow; without ``want_flow`` the flow
         stays on the device and is not returned.
         """
+        self._need("restore_stack_scanned", "interp_model", "flow_model",
+                   "fusion_model")
         if self.pad:
             raise ValueError("restore_stack_scanned does not support "
                              "TEST.pad != 0; use restore_stack")

@@ -69,8 +69,8 @@ _ENTRY_POINTS = {
     # design at any shape)
     "sstem_head_tail": [_P] * 4 + [_I] * 6 + [_P],
     "sstem_head_tail_mma": [_P] * 4 + [_I] * 6 + [_P],
-    # x, out, total bytes, slab bytes, stream
-    "sstem_probe_copy": [_P, _P, _L, _L, _P],
+    # x, out, total bytes, stream
+    "sstem_probe_copy": [_P, _P, _L, _P],
     # src, idx, out, rows, cols, axis, stream
     "sstem_probe_gather": [_P, _P, _P, _I, _I, _I, _P],
     # src, shift, out, rows, cols, stream

@@ -2,9 +2,11 @@
 ``tools/probe_dma_conv.py``: ``dma_copy``, and ``tools/probe_gather.py``:
 ``prim`` and ``prim_roll``).
 
-  * ``tile_copy(x, ty)``: a copy of ``x`` staged through shared memory in
-    slabs of ``ty`` leading rows (``csrc/probe_copy.cu``); it measures the
-    copy bandwidth an asynchronous shared-memory staging reaches.
+  * ``tile_copy(x, ty)``: a copy of ``x`` in 4 KB tiles, a 16-byte chunk a
+    thread (``csrc/probe_copy.cu``); it measures the copy bandwidth the card
+    reaches, as the TPU probe measures its DMA engine's. ``ty``, the TPU
+    probe's slab of leading rows, is validated and changes nothing: the
+    kernel walks the whole byte range.
   * ``take_along_axis(src, idx, axis)``: ``jnp.take_along_axis`` of a 2-D
     float32 array by an int32 index array of the same shape
     (``csrc/probe_gather.cu``), with the JAX function's default fill mode:
@@ -58,27 +60,27 @@ def tile_copy_plain(x, ty=4):
 
 
 def tile_copy(x, ty=4):
-    """Copy ``x`` through shared memory, ``ty`` leading rows per slab.
+    """Copy ``x`` in 4 KB tiles, a 16-byte chunk a thread.
 
     Args:
       x: a contiguous tensor of any dtype with at least one dimension.
-      ty: rows of ``x.shape[0]`` per slab (the TPU probe's block height).
+      ty: the TPU probe's block height, rows of ``x.shape[0]`` per slab; an
+        int >= 1 (it may exceed the row count), which changes no value and
+        not the kernel's work.
 
     Returns:
       A new tensor equal to ``x``. ``tile_copy.launches`` counts kernel
       launches.
     """
-    if x.dim() < 1 or x.numel() == 0 or ty < 1:
-        raise ValueError(f"tile_copy wants a non-empty array and ty >= 1; got "
-                         f"{tuple(x.shape)}, ty={ty}")
+    if x.dim() < 1 or x.numel() == 0 or not isinstance(ty, int) or ty < 1:
+        raise ValueError(f"tile_copy wants a non-empty array and an int "
+                         f"ty >= 1; got {tuple(x.shape)}, ty={ty!r}")
     if x.device.type == "cpu":
         return tile_copy_plain(x, ty)
     device = _build.require_cuda("tile_copy", x)
     out = torch.empty_like(x)
-    total = x.numel() * x.element_size()
-    slab = ty * (total // x.shape[0])
     _build.launch("sstem_probe_copy", device, x.data_ptr(), out.data_ptr(),
-                  total, slab)
+                  x.numel() * x.element_size())
     tile_copy.launches += 1
     return out
 

@@ -1,7 +1,7 @@
 """Fused-conv serving forwards (eval mode, bf16) of the three SFF nets and
-the two SP U-Nets (counterpart of ``sstem_tpu/models/serving.py``:
+the three SP nets (counterpart of ``sstem_tpu/models/serving.py``:
 ``fusionnet_serve``, ``unet_sff_serve``, ``ifnet_serve`` with
-``n_frames=1``, ``unet_sp_backbone_serve``, ``unet_sp_serve``,
+``n_frames`` 1 or 2, ``unet_sp_backbone_serve``, ``unet_sp_serve``,
 ``fusionnet_sp_serve``, ``fold_gray_pair_conv`` and
 ``_with_folded_first_conv``).
 
@@ -47,6 +47,7 @@ from sstem_tpu_torch.kernels import (
     pool2x,
     sepconv_planar,
 )
+from sstem_tpu_torch.models.ifnet import HEADS
 from sstem_tpu_torch.ops import replication_pad_2d
 
 _BF = torch.bfloat16
@@ -473,11 +474,8 @@ def fusionnet_sp_serve(model, x1, x2):
 
 
 # ---------------------------------------------------------------------------
-# IFNet (SFF kernel-prediction net, one frame)
+# IFNet (kernel-prediction net: the SFF net, one frame; the SP net, two)
 # ---------------------------------------------------------------------------
-
-_HEADS = ("upconv51_1", "upconv51_2", "upconv51_3", "upconv51_4")
-
 
 def _ifnet_args(model, fused_head_tail):
     def module(seq, conv=_kconv):
@@ -493,7 +491,7 @@ def _ifnet_args(model, fused_head_tail):
         p[name] = xla_module(getattr(model, name))
     for name in ("upsamp512", "upsamp256", "upsamp128"):
         p[name] = _xconv(getattr(model, name)[1])
-    for name in _HEADS:
+    for name in (n for frame in HEADS[model.n_frames] for n in frame):
         head = getattr(model, name)
         k = head[7].out_channels
         # the fused tail reads 64-channel features whose channels >= K are
@@ -515,28 +513,35 @@ def ifnet_serve(model, x, n_frames=1, assume_gray=True,
     """Eval IFNet forward in bf16: the conv32 and conv64 modules, upsamp64's
     conv and the head convs 0-2 on the conv kernel, the first avg pool on
     the pool kernel, the levels below on cuDNN, then each head's tail
-    (align-corners 2x upsample + conv3) and the two sepconvs.
+    (align-corners 2x upsample + conv3) and two sepconvs per frame.
 
     Args:
-      model: the port's ``IFNet``.
-      x: (N, H, W, 6) two replicated-gray frames, or the (N, H, W, 2) gray
-        pair; H and W multiples of 32; values in 0..1.
-      n_frames: 1 (the SFF net; the SP two-frame net is not ported yet).
-      assume_gray: the frames are gray, so each sepconv runs on one channel.
+      model: the port's ``IFNet`` with ``n_frames`` frames.
+      x: (N, H, W, 6) two replicated-gray frames (or, with ``assume_gray``
+        False, two 3-channel frames), or the (N, H, W, 2) gray pair; H and
+        W multiples of 32; values in 0..1.
+      n_frames: 1 (the SFF net, four heads) or 2 (the SP net, four heads a
+        frame, read per frame as k2h, k2v, k1h, k1v: ``models.ifnet.HEADS``).
+      assume_gray: the frames are gray, so each sepconv runs on one
+        channel. False takes the 6-channel input's frames as 3 channels
+        each, runs each sepconv on 3 channels and returns their mean.
       fused_head_tail: the head tails on the ``head_tail`` kernel instead of
         cuDNN's upsample and conv (the JAX ``SSTEM_FUSED_HEAD_TAIL=1``).
 
     Returns:
-      (N, H, W, 1) float32.
+      (N, H, W, n_frames) float32, one channel per frame.
     """
-    if n_frames != 1:
-        raise NotImplementedError("ifnet_serve serves the 1-frame SFF IFNet")
-    if not assume_gray:
-        raise NotImplementedError("ifnet_serve serves gray frames "
-                                  "(assume_gray=True)")
+    if n_frames != model.n_frames:
+        raise ValueError(f"ifnet_serve: n_frames={n_frames} but the model "
+                         f"has {model.n_frames}")
     fold = x.shape[-1] == 2
-    i1 = x[..., 0:1]
-    i2 = x[..., 1:2] if fold else x[..., 3:4]
+    if fold and not assume_gray:
+        raise ValueError("ifnet_serve: a 2-channel input is a gray pair; "
+                         "assume_gray=False takes the 6-channel input")
+    i1 = x[..., 0:1] if fold else x[..., 0:3]
+    i2 = x[..., 1:2] if fold else x[..., 3:6]
+    if assume_gray:
+        i1, i2 = i1[..., 0:1], i2[..., 0:1]
     p = _prepared(model, ("ifnet", fold, fused_head_tail), lambda m: _ifnet_args(
         _with_folded_first_conv(m, ("conv32", "0")) if fold else m,
         fused_head_tail))
@@ -582,9 +587,12 @@ def ifnet_serve(model, x, n_frames=1, assume_gray=True,
                           mode="bilinear", align_corners=True)
         return F.conv2d(t, w3, padding=1) + b3[None, :, None, None]
 
-    k2h, k2v, k1h, k1v = (tail(name) for name in _HEADS)
     pad = model.kernel_size // 2
     p1 = replication_pad_2d(_nchw(i1).float(), pad).to(_BF).contiguous()
     p2 = replication_pad_2d(_nchw(i2).float(), pad).to(_BF).contiguous()
-    y = sepconv_planar(p2, k2v, k2h) + sepconv_planar(p1, k1v, k1h)
-    return _nhwc(y).float()
+    outs = []
+    for frame in HEADS[n_frames]:
+        k2h, k2v, k1h, k1v = (tail(name) for name in frame)
+        y = sepconv_planar(p2, k2v, k2h) + sepconv_planar(p1, k1v, k1h)
+        outs.append(y if assume_gray else y.mean(1, keepdim=True))
+    return _nhwc(torch.cat(outs, 1) if len(outs) > 1 else outs[0]).float()

@@ -1,12 +1,13 @@
-"""Probe: the copy bandwidth of shared-memory staging, and the conv3x3
-kernel against the library conv (counterpart of
+"""Probe: the copy bandwidth the card reaches, and the conv3x3 kernel
+against the library conv (counterpart of
 ``tools/probe_dma_conv.py``).
 
     python -m sstem_tpu_torch.tools.probe_dma_conv [--copy] [--conv]
         [--device cuda|cpu] [--iters 8]
 
-1. ``--copy``: device memory -> shared memory -> device memory, slabs of
-   ``ty=4`` leading rows (``kernels.tile_copy``), for bf16 (1280, 1280, C),
+1. ``--copy``: device memory -> device memory in 4 KB tiles
+   (``kernels.tile_copy``; ``ty=4``, the TPU probe's slab of leading rows,
+   is printed and changes nothing), for bf16 (1280, 1280, C),
    C in {51, 64, 128}, and a planar (64, 1280, 1280): ms, GB/s with reads
    and writes counted, and whether the copy is exact.
 2. ``--conv``: the conv3x3 kernel (``conv3x3_fused`` with no activation and
@@ -32,6 +33,17 @@ COPY_SHAPES = (("NHWC C=51  (1280,1280,51)", (1280, 1280, 51)),
                ("NHWC C=128 (1280,1280,128)", (1280, 1280, 128)),
                ("planar     (64,1280,1280)", (64, 1280, 1280)))
 COPY_TY = 4
+# the copy's edges (name, shape, dtype, ty): byte counts that are not a
+# multiple of 16, arrays smaller than one 16 KB stage or than 16 bytes,
+# chunks whose last piece is partial, and ty above the row count
+COPY_EDGE_CASES = (
+    ("int8, odd width", (37, 1001), "int8", 4),
+    ("bf16, odd width", (5, 1001), "bfloat16", 4),
+    ("smaller than one stage", (100,), "bfloat16", 4),
+    ("under 16 bytes", (7,), "uint8", 1),
+    ("partial last pieces", (1000, 12345), "uint8", 4),
+    ("ty above the row count", (3, 17, 5), "bfloat16", 8),
+)
 CONV_CASES = ((64, 64, 1280), (32, 32, 1280), (128, 128, 640))
 
 
@@ -99,7 +111,7 @@ def main(argv=None):
     ok = True
     with torch.inference_mode():
         if args.copy or both:
-            print("== copy through shared memory (read+write counted) ==",
+            print(f"== tile copy, ty={COPY_TY} (read+write counted) ==",
                   flush=True)
             ok = all(r["correct"] for r in copy_probe(args.device,
                                                       iters=args.iters))

@@ -1,0 +1,144 @@
+"""The port's SFF inference CLIs (sstem_tpu_torch/cli/infer_interp.py,
+infer_fusion.py, _ckpt.py, ops/flow_display.py, metrics.py) vs the JAX
+package's, on the same reference-format checkpoints (the seeded numpy
+weights of tests/_torch_port.py, K=5) and the same 64^2 PNG sections.
+
+Both CLIs run float32 on the CPU (the JAX pipeline's modules; the port's
+cuDNN path with ``--device cpu``). Bounds:
+  * every PNG the CLIs write (interp, fused, stitch and the flow
+    renderings) within 1 uint8 level: floor quantization of float32
+    results that differ in rounding;
+  * scores.txt: the same lines in the same format, each PSNR within 0.1 dB
+    and each SSIM within 2e-3 of the JAX CLI's (the scored PNGs differ by
+    at most a level);
+  * ``compute_ssim`` and ``dense_flow``: equal to JAX's on the same arrays.
+"""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from sstem_tpu import metrics as jax_metrics
+from sstem_tpu.cli import infer_fusion as jax_fusion
+from sstem_tpu.cli import infer_interp as jax_interp
+from sstem_tpu.data.synthetic import synth_stack
+from sstem_tpu.ops.flow_display import dense_flow as jax_dense_flow
+from sstem_tpu_torch import metrics
+from sstem_tpu_torch.cli import infer_fusion, infer_interp
+from sstem_tpu_torch.ops.flow_display import dense_flow
+
+from _torch_port import port_sff_models, sff_variables
+
+torch.set_num_threads(1)
+
+K = 5
+IDS = (1, 3, 5)
+NAME = "sff"
+CFG = f"TRAIN:\n  kernel_size: {K}\n  ngf: 32\nTEST:\n  pad: 0\n"
+# the folders each CLI writes under its output path, by CLI
+FOLDERS = {"interp": ("sff_interp",),
+           "fusion": ("sff_fusion", "sff_fusion_stitching", "sff_fusion_flow")}
+
+
+def _save(model, path):
+    """A port module as a reference checkpoint: a ``model_weights``
+    payload with ``nn.DataParallel``'s ``module.`` prefixes."""
+    torch.save({"model_weights": {f"module.{k}": v for k, v in
+                                  model.state_dict().items()}}, path)
+
+
+def _args(root, out):
+    """Both CLIs' shared arguments, writing under ``out``."""
+    return ["-c", str(root / "cfg.yaml"), "-ip", str(root / "data"),
+            "-t", NAME, "-op", str(root / out), "-m", "valid"]
+
+
+def _fusion_args(root):
+    """The fusion CLI's checkpoints and the JAX interp CLI's PNGs as its
+    interp input, so that both fusion CLIs see the same inputs."""
+    return ["--ckpt", str(root / "fusion.pth"), "--flow-ckpt",
+            str(root / "flow.pth"),
+            "--interp-dir", str(root / "jax" / "sff_interp")]
+
+
+@pytest.fixture(scope="module")
+def case(tmp_path_factory):
+    """A 7-section 64^2 stack as PNGs with 3 damaged ids, the port models
+    as reference checkpoints, a config, and the JAX CLIs' outputs, each
+    made once."""
+    root = tmp_path_factory.mktemp("sff_cli")
+    data = root / "data" / NAME
+    data.mkdir(parents=True)
+    for i, img in enumerate(synth_stack(7, 64, 64, seed=7)):
+        Image.fromarray(img).save(data / f"{i:04d}.png")
+    (root / "data" / f"{NAME}.txt").write_text(" ".join(map(str, IDS)))
+    (root / "cfg.yaml").write_text(CFG)
+    models = port_sff_models(K, sff_variables(K, seed=70))
+    for name, model in zip(("interp", "flow", "fusion"), models):
+        _save(model, root / f"{name}.pth")
+    jax_interp.main(_args(root, "jax") + ["--ckpt", str(root / "interp.pth")])
+    jax_fusion.main(_args(root, "jax") + _fusion_args(root))
+    return root
+
+
+def _pngs(folder):
+    return {p.name: np.asarray(Image.open(p)).astype(np.int32)
+            for p in sorted(folder.glob("*.png"))}
+
+
+def _scores(path):
+    """scores.txt as [(label, psnr, ssim)], and its lines with the numbers
+    blanked (the format)."""
+    lines = path.read_text().splitlines()
+    rows = []
+    for line in lines:
+        m = (re.fullmatch(r"(image=\d+), PSNR=(\S+), SSIM=(\S+)", line)
+             or re.fullmatch(r"(mean)_PSNR=(\S+), mean_SSIM=(\S+)", line))
+        rows.append((m.group(1), float(m.group(2)), float(m.group(3))))
+    return rows, [re.sub(r"-?\d+\.\d{4}", "#", line) for line in lines]
+
+
+@pytest.mark.parametrize("cli", ["interp", "fusion"])
+def test_port_cli_matches_jax(case, cli):
+    """The port's CLI on the CPU writes the JAX CLI's PNGs within 1 level
+    and its scores.txt within 0.1 dB PSNR and 2e-3 SSIM, line for line."""
+    out = f"port_{cli}"
+    if cli == "interp":
+        infer_interp.main(_args(case, out) + [
+            "--ckpt", str(case / "interp.pth"), "--device", "cpu"])
+    else:
+        infer_fusion.main(_args(case, out) + _fusion_args(case)
+                          + ["--device", "cpu"])
+    for folder in FOLDERS[cli]:
+        want, got = _pngs(case / "jax" / folder), _pngs(case / out / folder)
+        assert sorted(got) == sorted(want) == [f"{i:04d}.png" for i in IDS]
+        for name in want:
+            assert got[name].shape == want[name].shape, (folder, name)
+            d = np.abs(got[name] - want[name]).max()
+            assert d <= 1, (folder, name, d)
+    want, want_shape = _scores(case / "jax" / FOLDERS[cli][0] / "scores.txt")
+    got, got_shape = _scores(case / out / FOLDERS[cli][0] / "scores.txt")
+    assert got_shape == want_shape and len(got) == len(IDS) + 1
+    for (label, psnr, ssim), (w_label, w_psnr, w_ssim) in zip(got, want):
+        assert label == w_label
+        assert abs(psnr - w_psnr) <= 0.1 and abs(ssim - w_ssim) <= 2e-3, (
+            label, psnr, w_psnr, ssim, w_ssim)
+
+
+def test_ssim_and_flow_rendering_match_jax():
+    """``compute_ssim`` (uint8 and 0..1 inputs) and ``dense_flow`` (with a
+    NaN and an unknown > 1e7 flow pixel) equal the JAX package's."""
+    rng = np.random.default_rng(71)
+    a = rng.integers(0, 256, (40, 52), dtype=np.uint8)
+    b = np.clip(a.astype(np.int32) + rng.integers(-20, 21, a.shape), 0,
+                255).astype(np.uint8)
+    assert metrics.compute_ssim(a, b) == jax_metrics.compute_ssim(a, b)
+    assert metrics.compute_ssim(a / 255.0, b / 255.0) == (
+        jax_metrics.compute_ssim(a / 255.0, b / 255.0))
+    flow = rng.normal(0, 3, (24, 31, 2)).astype(np.float32)
+    flow[0, 0] = np.nan
+    flow[1, 1] = 2e7
+    np.testing.assert_array_equal(dense_flow(flow), jax_dense_flow(flow))

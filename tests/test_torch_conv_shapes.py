@@ -80,6 +80,24 @@ def sp_calls(smoke):
     return sig
 
 
+@pytest.fixture(scope="module")
+def sp_served_calls(smoke):
+    """KernelSignatures of one served SP restore (one quartet: chip_smoke.py's
+    ServedSP, the two-frame IFNet on ifnet_serve) per head-tail choice."""
+    with skip_init():
+        nets = (_zeroed(IFNet(smoke.K, n_frames=2)), _zeroed(UNetSP()),
+                _zeroed(FusionNetSP()))
+    img = np.zeros((1, 64, 64), np.uint8)
+    calls = {}
+    for path in ("served", "served_fused_tail"):
+        served = smoke.build_sp_path(path, "cpu")
+        served.vfi, served.denoise, served.fusion = nets
+        with smoke.KernelSignatures() as sig:
+            served.restore(img, img, img, img, img, img)
+        calls[path] = sig
+    return calls
+
+
 # the tiny runs' inputs are 64^2; the paths run 1280^2 (SFF: 4 sections a
 # group, SP: batch 2)
 SCALE = 1280 // 64
@@ -142,6 +160,27 @@ def test_sp_packed_signatures_are_checked_on_the_card(smoke, sp_calls):
     assert got == smoke.SP_LAUNCHES["packed"]["conv3x3_fused"]
 
 
+@pytest.mark.parametrize("path", ["served", "served_fused_tail"])
+def test_sp_served_signatures_are_checked_on_the_card(smoke, sp_served_calls,
+                                                      path):
+    """The served SP path's conv3x3 signatures (the two-frame IFNet's and the
+    U-Nets') are in SP_CONV_CHECKS and timed in phase 18b, its head-tail and
+    sepconv signatures in the map check lists, and its launches per batch
+    are phase 18's."""
+    sig = sp_served_calls[path]
+    missing = sig.channels() - smoke.check_channels(smoke.SP_CONV_CHECKS)
+    assert not missing, f"not in chip_smoke.py's check lists: {missing}"
+    untimed = (full_width_shapes(sig, smoke.SP_BATCH)
+               - timed_shapes(smoke, smoke.SP_CONV_CHECKS))
+    assert not untimed, f"shapes phase 18b does not time: {untimed}"
+    unchecked = full_width_maps(sig, smoke.SP_BATCH) - smoke.MAP_CHECKS
+    assert not unchecked, f"not in chip_smoke.py's check lists: {unchecked}"
+    want = smoke.SP_LAUNCHES[path]
+    assert sum(sig.calls.values()) == want["conv3x3_fused"]
+    assert map_launches(sig, "sepconv") == want["sepconv_fwd"]
+    assert map_launches(sig, "head_tail") == want.get("head_tail", 0)
+
+
 @pytest.mark.parametrize("fused", [False, True], ids=["cudnn_tail", "fused_tail"])
 def test_sff_packed_map_signatures_are_checked_on_the_card(smoke, sff_calls,
                                                            fused):
@@ -166,11 +205,13 @@ def test_sp_packed_map_signatures_are_checked_on_the_card(smoke, sp_calls):
             == smoke.SP_LAUNCHES["packed"]["sepconv_fwd"])
 
 
-def test_path_map_signatures_take_the_hopper_designs(sff_calls, sp_calls):
+def test_path_map_signatures_take_the_hopper_designs(sff_calls, sp_calls,
+                                                     sp_served_calls):
     """At full width the paths' head tails and sepconvs run the new
     designs."""
     ht = importlib.import_module("sstem_tpu_torch.kernels.head_tail")
-    for sig, n in ((sff_calls[True], 4), (sp_calls, 2)):
+    for sig, n in ((sff_calls[True], 4), (sp_calls, 2),
+                   (sp_served_calls["served_fused_tail"], 2)):
         for key in full_width_maps(sig, n):
             if key[0] == "head_tail":
                 assert ht.design(key[3], key[4], key[5]) == "wgmma", key
@@ -276,8 +317,9 @@ def test_sepconv_bwd_check_list_holds_both_designs(smoke):
     assert {c[4] for c in rows} >= {5, 11, smoke.K}
 
 
-def test_every_path_signature_has_a_design(sff_calls, sp_calls):
-    for sig in (*sff_calls.values(), sp_calls):
+def test_every_path_signature_has_a_design(sff_calls, sp_calls,
+                                           sp_served_calls):
+    for sig in (*sff_calls.values(), sp_calls, *sp_served_calls.values()):
         for kernel, cin, cout, _, _ in sig.channels():
             module = DESIGNS[kernel]
             assert module.design(cin, cout) in module.ENTRY_POINTS

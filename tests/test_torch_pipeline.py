@@ -41,10 +41,10 @@ def pipelines():
             SFFPipeline(interp, flow, fusion, device="cpu"))
 
 
-def _assert_within_bounds(got, want):
+def _assert_within_bounds(got, want, levels=("interp", "fused", "warped")):
     assert set(got) == set(want)
     for i in want:
-        for k in ("interp", "fused", "warped"):
+        for k in levels:
             assert got[i][k].dtype == np.uint8
             assert got[i][k].shape == want[i][k].shape, (i, k)
             d = np.abs(got[i][k].astype(np.int32) - want[i][k].astype(np.int32))
@@ -184,3 +184,48 @@ def test_packed_fused_head_tail_matches_unfused(pipelines):
     got = _packed(pipelines, fused_head_tail=True).restore_stack(stack, IDS)
     nrmse = _nrmse_report(got, want, IDS)
     assert all(v < 0.05 for v in nrmse.values()), nrmse
+
+
+def test_interp_only_pipeline_matches_jax(pipelines):
+    """The interp CLI's configuration: the port's pipeline built with the
+    interp model alone, ``interpolate(clip=False)`` held against JAX within
+    1e-4 abs (float32) on the section that
+    ``test_port_interpolate_unclipped_matches_jax`` uses, so the JAX side
+    reuses its compiled interp. The missing stages raise, naming the
+    models."""
+    interp = pipelines[1].interp_model
+    pipe = SFFPipeline(interp, None, None, device="cpu")
+    stack = synth_stack(5, 83, 75, seed=3)
+    want = np.asarray(pipelines[0].interpolate(stack[[0]], stack[[2]],
+                                               clip=False))
+    got = pipe.interpolate(stack[[0]], stack[[2]], clip=False)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="flow_model, fusion_model"):
+        pipe.restore(stack[[1]], stack[[1]])
+    with pytest.raises(ValueError, match="restore_stack_scanned needs"):
+        pipe.restore_stack_scanned(stack, IDS)
+
+
+def test_flow_fusion_only_pipeline_matches_jax(pipelines):
+    """The fusion CLI's configuration: the port's pipeline built with the
+    flow and fusion models alone, ``restore`` held against the JAX one
+    (float32) on a degraded section and an interp image of 83 x 75, which
+    pad to the (96, 96) the JAX side compiled for ``restore_stack``:
+    fused, warped and stitch within 1 uint8 level (stitch where both
+    ``warped8 >= 2`` masks agree, on all but 0.1% of pixels), flow within
+    1e-3 abs."""
+    p = pipelines[1]
+    pipe = SFFPipeline(None, p.flow_model, p.fusion_model, device="cpu")
+    stack = synth_stack(5, 83, 75, seed=6)
+    deg, interp = stack[[2]], stack[[1]]
+    want = {k: np.asarray(v) for k, v in pipelines[0].restore(deg, interp).items()}
+    got = {k: v.numpy() for k, v in pipe.restore(deg, interp).items()}
+
+    def section(d):
+        return {0: {"flow": d["flow"][0],
+                    **{k: np.floor(d[k][0] * 255).astype(np.uint8)
+                       for k in ("fused", "warped", "stitch")}}}
+
+    _assert_within_bounds(section(got), section(want), ("fused", "warped"))
+    with pytest.raises(ValueError, match="needs interp_model"):
+        pipe.interpolate(stack[[0]], stack[[2]])

@@ -157,6 +157,34 @@ def test_tile_copy_matches_dma_copy():
     np.testing.assert_array_equal(want, x)
 
 
+@pytest.mark.parametrize("name, shape, dtype, ty", probe_dma_conv.COPY_EDGE_CASES,
+                         ids=[c[0].replace(" ", "_").replace(",", "")
+                              for c in probe_dma_conv.COPY_EDGE_CASES])
+def test_tile_copy_edge_cases(name, shape, dtype, ty):
+    """The copy's edges (probe_dma_conv.COPY_EDGE_CASES, which phase 16 of
+    chip_smoke.py holds on the card against this plain version): a new
+    tensor, bit-exact, of the input's dtype and shape."""
+    rng = np.random.default_rng(len(name))
+    dt = getattr(torch, dtype)
+    if dt.is_floating_point:
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dt)
+    else:
+        x = torch.from_numpy(rng.integers(-128 if dt == torch.int8 else 0,
+                                          128 if dt == torch.int8 else 256,
+                                          shape)).to(dt)
+    got = tile_copy(x, ty)
+    assert got.dtype == dt and got.shape == x.shape
+    assert got.data_ptr() != x.data_ptr() and torch.equal(got, x)
+
+
+@pytest.mark.parametrize("x, ty", [
+    (torch.zeros(4, 4), 0), (torch.zeros(4, 4), 2.0), (torch.zeros(0, 4), 4),
+    (torch.zeros(()), 1)], ids=["ty0", "ty_float", "empty", "scalar"])
+def test_tile_copy_refusals(x, ty):
+    with pytest.raises(ValueError, match="non-empty array and an int ty >= 1"):
+        tile_copy(x, ty)
+
+
 # the kernels' edge cases (probe_gather.EDGE_CASES), which phase 16 of
 # chip_smoke.py holds on the card; their indices include -1, rows + cols and
 # -(rows + cols), as phase 16's do

@@ -44,8 +44,12 @@ from sstem_tpu.kernels.deconv import build_packed_deconv_weights, deconv2x_packe
 from sstem_tpu.kernels.head_tail import dephase_transpose, head_tail_fused
 from sstem_tpu.kernels.pool import pool2x_packed
 from sstem_tpu.models import UNetSP as JaxUNetSP
+from sstem_tpu.models.serving import ifnet_serve as jax_ifnet_serve
 from sstem_tpu.models.serving import unet_sp_serve as jax_unet_sp_serve
-from sstem_tpu_torch.compat import unet_sp_state_dict_from_jax
+from sstem_tpu_torch.compat import (
+    ifnet_state_dict_from_jax,
+    unet_sp_state_dict_from_jax,
+)
 from sstem_tpu_torch.config import PARITY_DTYPE
 from sstem_tpu_torch.infer.pipeline import SFFPipeline
 from sstem_tpu_torch.kernels import (
@@ -66,6 +70,7 @@ from sstem_tpu_torch.models.serving import (
 )
 
 from _torch_port import (
+    ifnet_variables,
     numpy_variables,
     port_module,
     port_sff_models,
@@ -344,3 +349,55 @@ def test_sp_serve_matches_jax_serve(sp_modules, name):
     want = np.asarray(want)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert _nrmse(got, want) < 0.05, _nrmse(got, want)
+
+
+@pytest.fixture(scope="module")
+def two_frame():
+    """The two-frame IFNet(11) at 64^2: numpy weights, the port module
+    (float32, eval) and the JAX ``ifnet_serve(n_frames=2)`` outputs with its
+    Pallas kernels in interpret mode, on the 2-channel gray pair and on 6
+    distinct channels with ``assume_gray=False``, each computed once."""
+    k = 11
+    iv = ifnet_variables(k, seed=60, n_frames=2)
+    with skip_init():  # every value is loaded next
+        model = port_module("IFNet", k, 2)
+    model.load_state_dict(ifnet_state_dict_from_jax(iv, 2), strict=True)
+    rng = np.random.default_rng(61)
+    inputs = {"pair": rng.random((1, 64, 64, 2), dtype=np.float32),
+              "rgb": rng.random((1, 64, 64, 6), dtype=np.float32)}
+    serve = jax.jit(functools.partial(jax_ifnet_serve, kernel_size=k,
+                                      n_frames=2, interpret=True),
+                    static_argnames=("assume_gray",))
+    want = {form: np.asarray(serve(iv, jnp.asarray(x),
+                                   assume_gray=form == "pair"), np.float32)
+            for form, x in inputs.items()}
+    return model.eval(), inputs, want
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["cudnn_tail", "fused_tail"])
+@pytest.mark.parametrize("form", ["pair", "rgb"])
+def test_ifnet_serve_two_frame_matches_jax_serve(two_frame, form, fused):
+    """The port's ``ifnet_serve(n_frames=2)`` against the JAX one (Pallas in
+    interpret mode), both bf16: NRMSE below 0.05 of the output's std, the
+    bound tests/test_serving.py::test_ifnet_serve_two_frame sets between the
+    JAX serving forward and flax. ``pair``: the 2-channel gray pair (first
+    conv pair-folded); ``rgb``: 6 channels with ``assume_gray=False``, each
+    sepconv on 3 channels and their mean. The head tails run on cuDNN's
+    upsample and conv or on the head-tail kernel's plain version; the JAX
+    side runs its planar tail (its fused tail needs W/2 % 128 == 0)."""
+    model, inputs, want = two_frame
+    with torch.inference_mode():
+        got = ifnet_serve(model, torch.from_numpy(inputs[form]), n_frames=2,
+                          assume_gray=form == "pair", fused_head_tail=fused)
+    assert got.dtype == torch.float32 and got.shape == want[form].shape == (
+        1, 64, 64, 2)
+    assert _nrmse(got, want[form]) < 0.05, _nrmse(got, want[form])
+
+
+def test_ifnet_serve_refusals(two_frame):
+    model = two_frame[0]
+    with pytest.raises(ValueError, match="n_frames=1 but the model has 2"):
+        ifnet_serve(model, torch.zeros((1, 32, 32, 2)))
+    with pytest.raises(ValueError, match="gray pair"):
+        ifnet_serve(model, torch.zeros((1, 32, 32, 2)), n_frames=2,
+                    assume_gray=False)
