@@ -11,7 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      wgmma serialization warning)
   3. the sepconv forward's two designs (the one the shape picks, and the
      simple one) vs its plain PyTorch version at every SEPCONV_CHECKS row
-  4. warp kernel vs its plain PyTorch version on the same inputs
+  4. warp kernel vs its plain PyTorch version at every WARP_CHECKS shape
+     (fold flows; the fusion step's from degrade_sff_batch; far out of range)
   5. pipeline on the card vs on the CPU (K=51, float32, TF32 off)
   6. full size: restore_stack_scanned on a 25 x 1250^2 stack, 12 damaged
      sections, chunk 4, K=51, ngf=32, in bfloat16 and in float32, with the
@@ -79,6 +80,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      path and with --packed-conv, each twice: launch counts asserted
      (sepconv 2 and warp 1 per section), output shapes, and the average
      inference time per section
+ 21. the SFF training chain at full width on a seeded triplet tree of
+     16 x 512^2: ``infer_interp_trainingset.main -bs 4`` (sepconv 2 a
+     batch), ``train_interp.main --device-datagen`` (3 steps of phase 10's
+     workload, the triplets as a pool on the card), ``train_unfolding.main``
+     and ``train_fusion.main`` (behind the unfolding run's checkpoint) for 3
+     steps each on the host and the device datagen paths, and a resume of
+     the fusion run with --resume-from (optimizer state checked), launches
+     asserted and signatures checked per run; then the step of each
+     ``build(cfg)`` at bench.py:394-399's unfolding workload (FusionNet ngf
+     32, batch 8, 400^2 crops to 256^2, L1, AdamW, float32, TF32 off) and
+     the fusion step at the same shapes (UNetSFF behind the frozen flow
+     net), on both datagen paths: ms/step, steps/s, MP/s, peak memory,
+     launches per step (warp 1 a fusion step asserted), 2 steps under
+     torch.profiler (device busy time, idle share, device ms by kind)
+ 22. ``infer_unfolding.main`` (float32, test mode) on phase 20's stack with
+     its damaged sections folded from the seed, and
+     ``infer_interp_single.main`` on one 1250^2 pair, each twice: warp 1 a
+     section and sepconv 2 a pair asserted, signatures checked, output
+     shapes, the average flow and warp ms a section, and the flow net's EPE
+     against the synthesized flow (finite); then the warp and sepconv at
+     the new paths' shapes beside their plain versions and bounds
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -204,6 +226,27 @@ def check_warp(im, flow, label):
     return err
 
 
+def warp_inputs(n, h, w, gen):
+    """A unit-range image and a flow at one WARP_CHECKS shape: the fusion
+    step's flows from degrade_sff_batch on seeded 400^2 crops (line width
+    5..20, as the fusion trainer draws them), random +-20 px at the odd
+    size, fold flows (ops.flow.fold_flows) elsewhere."""
+    from sstem_tpu_torch.data import synth_stack
+    from sstem_tpu_torch.data.sim_sff import degrade_sff_batch, step_generator
+    from sstem_tpu_torch.ops.flow import fold_flows
+
+    im = rand((n, h, w, 1), gen)
+    if (n, h, w) == (SFF_TRAIN_BATCH, SFF_TRAIN_DET, SFF_TRAIN_DET):
+        crops = torch.from_numpy(synth_stack(n, SFF_TRAIN_CROP, SFF_TRAIN_CROP,
+                                             seed=SEED)).cuda()
+        _, flow = degrade_sff_batch(crops, step_generator(SEED, 1, "cuda"),
+                                    det_size=h, line_width_range=(5, 20))
+        return im, flow.contiguous()
+    if (n, h, w) == (2, 250, 333):
+        return im, (rand((n, h, w, 2), gen) - 0.5) * 40
+    return im, torch.from_numpy(fold_flows(n, h, w, SEED)).cuda()
+
+
 def build_pipeline(device, dtype, seed=SEED, kernel_size=K, **options):
     """SFFPipeline on seeded random weights. The kernel heads' last conv is
     rescaled so each frame's taps sum to about 1/sqrt(2), as a trained KPN's
@@ -310,11 +353,31 @@ ODD_DECONV_CHECKS = (
 )
 
 
+# The SFF correction and fusion trainers' workload (bench.py:394-399:
+# batch 8 of 400^2 crops degraded and centre-cropped to 256^2), and
+# infer_interp_trainingset's over a triplet tree of 16 x 512^2, 4 rows a
+# call (phase 21).
+SFF_TRAIN_BATCH, SFF_TRAIN_CROP, SFF_TRAIN_DET = 8, 400, 256
+TRAININGSET_ROWS, TRAININGSET_SIZE, TRAININGSET_BS = 16, 512, 4
+
+# The serving warp's shapes (n, h, w) that the paths launch: the SFF restore
+# (4 sections a group on the 1280^2 canvas), the fusion trainer's step
+# (SFF_TRAIN_BATCH x 256^2) and the trainers' previews (one 256^2 crop),
+# infer_unfolding (one 1250^2 section) and infer_fusion (one section on its
+# 1280^2 canvas); then an odd size. Phase 4 holds the kernel against its plain version at each;
+# phases 21 and 22 fail on a launched shape missing here, and
+# tests/test_torch_conv_shapes.py on the fusion step's and the CLI's.
+WARP_CHECKS = ((4, 1280, 1280), (SFF_TRAIN_BATCH, SFF_TRAIN_DET, SFF_TRAIN_DET),
+               (1, SFF_TRAIN_DET, SFF_TRAIN_DET), (1, 1250, 1250),
+               (1, 1280, 1280), (2, 250, 333))
+
 # The sepconv forward's signatures (n, c, h, w, k, image dtype, maps dtype)
 # and the head tail's (n, hi, wi, cx, k) that the paths launch at full
 # width: the SFF restore in bfloat16 (both paths) and float32, 4 sections a
 # group, its fused head tails on the 640^2 features; the SP restore, batch
 # 2 (the served path's fused head tails); the training step, 32 x 256^2;
+# infer_interp_single (one 1280^2 pair) and infer_interp_trainingset (4 x
+# 512^2); the interp trainer's validation on phase 10's 320^2 sections;
 # micro_bench. Then the remaining dtype
 # pair, K = 5 and 11, and odd sizes and channel counts that take the first
 # designs (sepconv W % 4 != 0; head tail Cx % 8 != 0) or the edges of the
@@ -327,6 +390,9 @@ SEPCONV_CHECKS = (
     (2, 1, 1280, 1280, K, "bfloat16", "bfloat16"),
     (32, 1, 256, 256, K, "float32", "float32"),
     (1, 1, 1280, 1280, K, "float32", "float32"),
+    (TRAININGSET_BS, 1, TRAININGSET_SIZE, TRAININGSET_SIZE, K, "float32",
+     "float32"),
+    (1, 1, 320, 320, K, "float32", "float32"),
     (4, 1, 1280, 1280, K, "float32", "bfloat16"),
     (4, 1, 1280, 1280, K, "bfloat16", "float32"),
     (2, 2, 64, 96, 5, "float32", "float32"),
@@ -381,19 +447,34 @@ class KernelSignatures:
     sepconv backwards (kernels/sepconv.py's ``_sepconv_bwd``) go into
     ``maps``, a Counter of ('head_tail', n, hi, wi, cx, k), ('sepconv', n,
     c, h, w, k, image dtype, maps dtype) and ('sepconv_bwd', ...) alike, as
-    the check lists write them."""
+    the check lists write them. The serving warps of the pipeline, the SFF
+    trainers and infer_unfolding go into ``warps``, a Counter of (n, h, w)
+    as WARP_CHECKS writes them."""
 
     def __init__(self):
         import collections
 
         self.calls = collections.Counter()
         self.maps = collections.Counter()
+        self.warps = collections.Counter()
 
     def __enter__(self):
-        from sstem_tpu_torch.kernels import sepconv
+        from sstem_tpu_torch.cli import infer_unfolding, train_fusion, train_unfolding
+        from sstem_tpu_torch.infer import pipeline
+        from sstem_tpu_torch.kernels import sepconv, serving_warp
         from sstem_tpu_torch.models import ifnet, serving
         from sstem_tpu_torch.tools import micro_bench
 
+        # the modules that call serving_warp by name
+        self._warp_sites = (pipeline, train_fusion, train_unfolding,
+                            infer_unfolding)
+
+        def warp_rec(im, flow):
+            self.warps[tuple(im.shape[:3])] += 1
+            return serving_warp(im, flow)
+
+        for site in self._warp_sites:
+            site.serving_warp = warp_rec
         self._serving = serving
         # the modules that call sepconv_planar by name
         self._sep_sites = (serving, ifnet, micro_bench)
@@ -444,8 +525,10 @@ class KernelSignatures:
         return self
 
     def __exit__(self, *exc):
-        from sstem_tpu_torch.kernels import sepconv_planar
+        from sstem_tpu_torch.kernels import sepconv_planar, serving_warp
 
+        for site in self._warp_sites:
+            site.serving_warp = serving_warp
         self._serving.conv3x3_fused, self._serving.deconv2x_fused = self._orig
         self._serving.head_tail = self._orig_tail
         for site in self._sep_sites:
@@ -477,10 +560,11 @@ def check_channels(checks, kernel="conv3x3"):
 
 
 def counted_kernels():
-    """Every kernel wrapper of the restore paths, by name."""
+    """Every kernel wrapper of the restore and training paths, by name."""
     from sstem_tpu_torch import kernels
 
     return {"sepconv_fwd": kernels.sepconv_planar,
+            "sepconv_bwd": kernels.sepconv_planar_bwd,
             "warp_bilinear": kernels.serving_warp,
             "conv3x3_fused": kernels.conv3x3_fused,
             "pool2x": kernels.pool2x,
@@ -564,13 +648,16 @@ def report_signatures(label, sig, units, unit, checked=frozenset()):
     fails when one is not in the check lists: a conv3x3 or deconv2x
     channel signature not in ``checked``, a head-tail or sepconv (backward)
     signature not in HEAD_TAIL_CHECKS, SEPCONV_CHECKS or
-    SEPCONV_BWD_CHECKS."""
+    SEPCONV_BWD_CHECKS, a warp shape not in WARP_CHECKS."""
     for key, n in sorted(sig.calls.items(), key=str):
         say(f"{label} {key[0]} {key[1]}x{key[2]}x{key[3]} {key[4]}->{key[5]} "
             f"act={key[6]} res={key[7]} launches per {unit}", n / units)
     for key, n in sorted(sig.maps.items(), key=str):
         say(f"{label} {key} launches per {unit}", n / units)
-    missing = (sig.channels() - checked) | (set(sig.maps) - MAP_CHECKS)
+    for key, n in sorted(sig.warps.items()):
+        say(f"{label} warp {key} launches per {unit}", n / units)
+    missing = ((sig.channels() - checked) | (set(sig.maps) - MAP_CHECKS)
+               | (set(sig.warps) - set(WARP_CHECKS)))
     assert not missing, f"{label}: signatures missing from the checks: {missing}"
 
 
@@ -720,14 +807,14 @@ KERNEL_KINDS = (
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def profile_steps(train_step, state, batch, steps=2):
+def profile_steps(train_step, state, batch, steps=2, label="train"):
     """torch.profiler over ``steps`` training steps (``profile_runs``)."""
     box = [state]
 
     def step():
         box[0], _ = train_step(box[0], batch)
 
-    profile_runs("train", step, steps, 1, "step", "train_profile.json")
+    profile_runs(label, step, steps, 1, "step", f"{label}_profile.json")
 
 
 def device_work(prof, trace_name):
@@ -2076,6 +2163,371 @@ def sff_cli_phase():
                 f"({CLI_SIZE}^2, batch 1)", avg * 1e3)
 
 
+# ---------------------------------------------------------------------------
+# phases 21-22: SFF correction and fusion training, and the last SFF CLIs
+# ---------------------------------------------------------------------------
+
+def write_sff_train_config(root, data, name, train):
+    """A correction or fusion trainer's config at bench.py:394-399's
+    workload (FusionNet ngf 32, batch SFF_TRAIN_BATCH of SFF_TRAIN_CROP^2
+    crops to SFF_TRAIN_DET^2, L1, AdamW wd 1e-4 under the poly warmup/decay
+    LR, the reference's augmentations) as a reference-style YAML config, as
+    write_interp_config writes one; ``train`` adds TRAIN keys."""
+    import yaml
+
+    aug = {"random_fliplr": True, "random_flipud": True, "random_flipz": True,
+           "random_rotation": True, "swap": False, "color_jitter": False,
+           "COLOR": {"brightness": 0.2, "contrast": 0.2, "saturation": 0.2},
+           "elastic_trans": False,
+           "ELASTIC": {"alpha_range": 100, "sigma": 10, "shave": 20},
+           "gauss_noise": False, "GAUSS": {"gauss_mean": 0, "gauss_sigma": 0.001}}
+    cfg = {"NAME": name,
+           "TRAIN": {"resume": False, "if_valid": False,
+                     "cache_path": os.path.join(root, "caches"),
+                     "save_path": os.path.join(root, "models"),
+                     "input_nc": 6, "output_nc": 2, "ngf": 32, "loss": "L1",
+                     "kernel_size": K, "total_iters": 400000,
+                     "warmup_iters": 1000, "base_lr": 1e-4, "end_lr": 1e-6,
+                     "decay_iters": 400000, "power": 1.5, "weight_decay": 1e-4,
+                     "display_freq": 100, "valid_freq": 1000, "save_freq": 1000,
+                     "batch_size": SFF_TRAIN_BATCH, "random_seed": SEED,
+                     **train},
+           "DATA": {"folder_name": data, "train_txt": "train_data.txt",
+                    "interp_train_txt": "interp_train_data.txt",
+                    "patch_size": [SFF_TRAIN_CROP, SFF_TRAIN_CROP],
+                    "det_size": SFF_TRAIN_DET, "AUG": aug},
+           "TEST": {"pad": 0}}
+    path = os.path.join(root, name + ".yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def run_main(label, main, argv, want):
+    """``run_cli`` under KernelSignatures: the launches asserted, and every
+    sepconv and warp signature the run launched checked against the lists.
+    Returns (the CLI's output, the signatures)."""
+    with KernelSignatures() as sig:
+        text = run_cli(label, main, argv, want)
+    report_signatures(label, sig, 1, "run")
+    return text, sig
+
+
+def time_train_step(label, step, state, next_batch, timed=10, warm=3):
+    """The step's ms (median of ``timed`` after ``warm``), steps/s, MP/s of
+    SFF_TRAIN_DET^2 outputs, peak memory and the kernels' launches per
+    step, each step's input from ``next_batch()`` (a provider's next batch,
+    whose wait for the host counts, or the pool step's counter); then 2
+    steps under torch.profiler. Returns (ms, launches per step by
+    kernel)."""
+    wrappers = counted_kernels()
+    box = [state]
+
+    def run():
+        box[0], metrics = step(box[0], next_batch())
+        return metrics
+
+    for _ in range(warm):
+        run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    times = []
+    with KernelSignatures() as sig:
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            metrics = run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    report_signatures(f"{label} step", sig, timed, "step")
+    per_step = {k: fn.launches / timed for k, fn in wrappers.items()
+                if fn.launches}
+    loss = float(metrics["loss"])
+    assert np.isfinite(loss), (label, loss)
+    ms = statistics.median(times) * 1e3
+    say(f"{label} step loss after {warm + timed} steps", loss)
+    say(f"{label} step ms (median of {timed} after {warm} warm)", ms)
+    say(f"{label} step ms runs", [t * 1e3 for t in times])
+    say(f"{label} step steps_per_s", 1e3 / ms)
+    say(f"{label} step MP_per_s", SFF_TRAIN_BATCH * SFF_TRAIN_DET ** 2 / ms / 1e3)
+    say(f"{label} step peak_memory_GiB",
+        torch.cuda.max_memory_allocated() / 2 ** 30)
+    for k, n in sorted(per_step.items()):
+        say(f"{label} step {k} launches per step", n)
+    profile_runs(f"{label} step", run, 2, 1, "step",
+                 f"{label.replace(' ', '_')}_profile.json")
+    return ms, per_step
+
+
+def sff_training_phase(interp_ckpt):
+    """Phase 21: the SFF training chain at full width on a seeded triplet
+    tree of TRAININGSET_ROWS x TRAININGSET_SIZE^2: infer_interp_trainingset
+    (-bs TRAININGSET_BS) writes the interp images; train_interp
+    --device-datagen runs 3 steps of phase 10's workload; train_unfolding
+    and train_fusion (behind the unfolding run's checkpoint) run 3 steps
+    each on the host and the device datagen paths, and the fusion run is
+    resumed with --resume-from; each run's launches are asserted and its
+    signatures checked. Then the steps of each ``build(cfg)`` are timed at
+    bench.py:394-399's workload on both datagen paths (device: the pool on
+    the card). Returns the new paths' launches for the JSON line."""
+    from sstem_tpu_torch.cli import (
+        infer_interp_trainingset, train_fusion, train_interp, train_unfolding,
+    )
+    from sstem_tpu_torch.compat.config import load_sff_config
+    from sstem_tpu_torch.data import write_triplet_tree
+    from sstem_tpu_torch.data.providers import (
+        FusionTrainDataset, Provider, RawCropPairDataset, UnfoldingTrainDataset,
+    )
+    from sstem_tpu_torch.train import device_datagen
+    from sstem_tpu_torch.train.trainer import TrainState
+
+    root = os.path.join(OUT, "sff_train")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data")
+    write_triplet_tree(data, n_triplets=TRAININGSET_ROWS, size=TRAININGSET_SIZE,
+                       seed=SEED)
+    cfg_i = os.path.join(root, "interp.yaml")
+    with open(cfg_i, "w") as f:
+        f.write(f"TRAIN:\n  kernel_size: {K}\nTEST:\n  pad: 0\n"
+                f"DATA:\n  folder_name: {data}\n  train_txt: train_data.txt\n")
+    launches = {}
+    batches = -(-TRAININGSET_ROWS // TRAININGSET_BS)
+    _, sig = run_main("sff train infer_interp_trainingset",
+                      infer_interp_trainingset.main,
+                      ["-c", cfg_i, "--ckpt", interp_ckpt,
+                       "-bs", str(TRAININGSET_BS)],
+                      {"sepconv_fwd": 2 * batches})
+    assert set(sig.maps) == {("sepconv", TRAININGSET_BS, 1, TRAININGSET_SIZE,
+                              TRAININGSET_SIZE, K, "float32", "float32")}, sig.maps
+    launches["trainingset"] = 2 * batches
+    with open(os.path.join(data, "interp_train_data.txt")) as f:
+        assert len(f.read().split()) == TRAININGSET_ROWS
+
+    # train_interp --device-datagen: phase 10's config; 2 sepconvs forward
+    # and backward a step, and 2 forward for each of the two validation
+    # images at step 1 (no preview on this path)
+    steps = 3
+    text, _ = run_main(
+        "sff train train_interp --device-datagen", train_interp.main,
+        ["-c", os.path.join(OUT, "interp_k51_b32.yaml"), "--max-iters",
+         str(steps), "--device-datagen"],
+        {"sepconv_fwd": 2 * steps + 2 * 2, "sepconv_bwd": 2 * steps})
+    assert "pool on the card" in text, text[-2000:]
+    launches["interp_devgen"] = {"sepconv_fwd": 2 * steps + 4,
+                                 "sepconv_bwd": 2 * steps}
+
+    for dg in ("host", "device"):
+        flags = ["--device-datagen"] if dg == "device" else []
+        cfg_u = write_sff_train_config(root, data, f"unfold_{dg}", {})
+        # the host path's step-1 preview warps once
+        run_main(f"sff train train_unfolding {dg}", train_unfolding.main,
+                 ["-c", cfg_u, "--max-iters", str(steps)] + flags,
+                 {"warp_bilinear": 1 if dg == "host" else 0})
+    save_u = os.path.join(root, "models")
+    flow_dir = sorted(d for d in os.listdir(save_u) if d.endswith("unfold_device"))
+    flow_dir = os.path.join(save_u, flow_dir[-1])
+    assert os.path.exists(os.path.join(flow_dir, "model-%06d.ckpt" % steps))
+    fusion = {"output_nc": 1, "flownet_path": flow_dir,
+              "flownet_id": "model-%06d.ckpt" % steps}
+    fusion_warps = {}
+    for dg in ("host", "device"):
+        flags = ["--device-datagen"] if dg == "device" else []
+        cfg_f = write_sff_train_config(root, data, f"fusion_{dg}", fusion)
+        # a warp a step, and one for the host path's step-1 preview
+        want = steps + (1 if dg == "host" else 0)
+        _, sig = run_main(f"sff train train_fusion {dg}", train_fusion.main,
+                          ["-c", cfg_f, "--max-iters", str(steps)] + flags,
+                          {"warp_bilinear": want})
+        assert set(sig.warps) == {(SFF_TRAIN_BATCH, SFF_TRAIN_DET,
+                                   SFF_TRAIN_DET)} | (
+            {(1, SFF_TRAIN_DET, SFF_TRAIN_DET)} if dg == "host" else set()), sig.warps
+        fusion_warps[dg] = want
+    fusion_save = sorted(d for d in os.listdir(save_u)
+                         if d.endswith("fusion_device"))[-1]
+    cfg_r = write_sff_train_config(root, data, "fusion_resumed", fusion)
+    run_main("sff train train_fusion --resume-from", train_fusion.main,
+             ["-c", cfg_r, "--max-iters", str(steps + 2), "--device-datagen",
+              "--resume-from", os.path.join(save_u, fusion_save)],
+             {"warp_bilinear": 2})
+    resumed = sorted(d for d in os.listdir(save_u)
+                     if d.endswith("fusion_resumed"))[-1]
+    payload = torch.load(os.path.join(save_u, resumed,
+                                      "model-%06d.ckpt" % (steps + 2)),
+                         map_location="cpu", weights_only=True)
+    opt_steps = {int(v["step"]) for v in payload["optimizer_weights"]["state"].values()}
+    say("sff train fusion resumed optimizer steps", sorted(opt_steps))
+    assert opt_steps == {steps + 2}, opt_steps
+    launches["fusion_main"] = sum(fusion_warps.values()) + 2
+
+    # the steps of build(cfg) at the workload
+    torch.cuda.empty_cache()
+    seed = SEED
+    cfg_u = load_sff_config(write_sff_train_config(root, data, "unfold_t", {}))
+    cfg_f = load_sff_config(write_sff_train_config(root, data, "fusion_t",
+                                                   fusion))
+    pairs = RawCropPairDataset(data, "train_data.txt", "interp_train_data.txt",
+                               crop_size=SFF_TRAIN_CROP)
+    pool = pairs.load_pool()
+    assert pool is not None and pool.shape == (TRAININGSET_ROWS, 2,
+                                               TRAININGSET_SIZE,
+                                               TRAININGSET_SIZE), pool
+    flow_model = train_fusion.load_flow_model(
+        os.path.join(flow_dir, "model-%06d.ckpt" % steps), 32, "cuda")
+    ms = {}
+    for name, cfg in (("unfolding", cfg_u), ("fusion", cfg_f)):
+        for dg in ("device", "host"):
+            if name == "unfolding":
+                model, opt, step, _, _ = train_unfolding.build(cfg, "cuda", seed)
+                base = device_datagen.make_device_datagen_loss(
+                    det_size=SFF_TRAIN_DET, seed=seed)
+                ds = UnfoldingTrainDataset(
+                    data, "train_data.txt", "interp_train_data.txt",
+                    crop_size=SFF_TRAIN_CROP, det_size=SFF_TRAIN_DET)
+            else:
+                model, opt, step, _, _ = train_fusion.build(cfg, flow_model,
+                                                            "cuda", seed)
+                base = train_fusion.make_fusion_devgen_loss(
+                    flow_model, SFF_TRAIN_DET, seed)
+                ds = FusionTrainDataset(
+                    data, "train_data.txt", "interp_train_data.txt",
+                    crop_size=SFF_TRAIN_CROP, det_size=SFF_TRAIN_DET)
+            label = f"sff train {name} {dg} datagen"
+            state = TrainState(model, opt)
+            if dg == "device":
+                step = device_datagen.make_pool_step(
+                    base, pool, SFF_TRAIN_BATCH, SFF_TRAIN_CROP, "cuda",
+                    seed=seed)
+                provider = device_datagen.CounterProvider()
+            else:
+                provider = Provider(ds, SFF_TRAIN_BATCH, seed=seed,
+                                    device="cuda")
+            try:
+                ms[name, dg], per = time_train_step(label, step, state,
+                                                    provider.next)
+            finally:
+                provider.close()
+            want = 1 if name == "fusion" else 0
+            assert per.get("warp_bilinear", 0) == want, (label, per)
+            del model, opt, state
+            torch.cuda.empty_cache()
+    for name in ("unfolding", "fusion"):
+        say(f"sff train {name} ms_per_step host datagen vs device datagen",
+            [ms[name, "host"], ms[name, "device"]])
+    return launches
+
+
+def write_unfolding_case(root, case_root, n_sections):
+    """infer_unfolding's inputs from phase 20's stack: each damaged section
+    folded on the host (sim_sff.degrade_sff's fold synthesis and uint8 warp,
+    at the full CLI_SIZE^2, line width 5..20, from the seed) as
+    %04d.png under data/sff. Returns the ground-truth unfolding flows by
+    id."""
+    from PIL import Image
+
+    from sstem_tpu_torch.data import sim_sff
+    from sstem_tpu_torch.ops.flow import gen_flow_np
+
+    rng = np.random.default_rng(SEED)
+    src = os.path.join(case_root, "data", "sff")
+    data = os.path.join(root, "data", "sff")
+    os.makedirs(data)
+    shutil.copy(os.path.join(case_root, "data", "sff.txt"),
+                os.path.join(root, "data", "sff.txt"))
+    flows = {}
+    for i in range(n_sections):
+        img = np.asarray(Image.open(os.path.join(src, f"{i:04d}.png")))
+        if i in CLI_IDS:
+            p = sim_sff.sample_fold_params(rng, *img.shape, (5, 20))
+            flow, flow2, mask = gen_flow_np(*img.shape, p["k"], p["b"],
+                                            p["line_width"], p["fold_width"],
+                                            p["dis_k"])
+            img = (sim_sff._np_image_warp_bilinear(img, flow) * mask).astype(
+                np.uint8)
+            flows[i] = flow2
+        Image.fromarray(img).save(os.path.join(data, f"{i:04d}.png"))
+    return flows
+
+
+def sff_serving_cli_phase():
+    """Phase 22: infer_unfolding (float32, TF32 off, test mode: valid mode
+    reads HDF5, which the card's machine lacks) on phase 20's stack with its
+    damaged sections folded from the seed, and infer_interp_single on one
+    CLI_SIZE^2 pair, each twice: warp 1 a section and sepconv 2 a pair
+    asserted, the signatures checked, the output shapes, the average flow
+    and warp ms a section; then the EPE of the flow net's flow against the
+    synthesized unfolding flow (a sanity bound: finite, random weights).
+    Returns the two runs' launches for the JSON line."""
+    import re
+
+    from PIL import Image
+
+    from sstem_tpu_torch import losses
+    from sstem_tpu_torch.cli import infer_interp_single, infer_unfolding
+    from sstem_tpu_torch.cli._ckpt import load_model
+    from sstem_tpu_torch.models import FusionNet
+
+    case = os.path.join(OUT, "sff_cli")
+    root = os.path.join(OUT, "sff_cli_unfolding")
+    shutil.rmtree(root, ignore_errors=True)
+    flows = write_unfolding_case(root, case, CLI_SECTIONS)
+    n = len(CLI_IDS)
+    out = os.path.join(root, "out")
+    argv = ["-c", os.path.join(case, "cfg.yaml"), "-ip",
+            os.path.join(root, "data"), "-t", "sff", "-op", out, "-m", "test",
+            "--ckpt", os.path.join(case, "flow.pth"), "--interp-dir",
+            os.path.join(case, "out_f32", "sff_interp")]
+    for run in (1, 2):
+        text, _ = run_main(f"sff cli infer_unfolding run {run}",
+                           infer_unfolding.main, argv, {"warp_bilinear": n})
+        for folder, shape in (("sff_unfolding_fusionnet", (CLI_SIZE, CLI_SIZE)),
+                              ("sff_unfolding_fusionnet_flow",
+                               (CLI_SIZE, CLI_SIZE, 3))):
+            for i in CLI_IDS:
+                img = np.asarray(Image.open(os.path.join(out, folder,
+                                                         f"{i:04d}.png")))
+                assert img.dtype == np.uint8 and img.shape == shape, (
+                    folder, i, img.shape)
+        for what in ("flow", "warp"):
+            avg = float(re.search(rf"average {what} time: (\S+)", text).group(1))
+            say(f"sff cli infer_unfolding run {run} average {what} ms per "
+                f"section ({CLI_SIZE}^2)", avg * 1e3)
+
+    pair = [os.path.join(case, "data", "sff", f"{i:04d}.png") for i in (0, 2)]
+    for run in (1, 2):
+        single = os.path.join(root, f"single_{run}.png")
+        t0 = time.perf_counter()
+        run_main(f"sff cli infer_interp_single run {run}",
+                 infer_interp_single.main,
+                 ["-c", os.path.join(case, "cfg.yaml"), "-i1", pair[0],
+                  "-i2", pair[1], "-o", single, "--ckpt",
+                  os.path.join(case, "interp.pth")],
+                 {"sepconv_fwd": 2})
+        say(f"sff cli infer_interp_single run {run} ms (main, PNG I/O "
+            "included)", (time.perf_counter() - t0) * 1e3)
+        assert np.asarray(Image.open(single)).shape == (CLI_SIZE, CLI_SIZE)
+
+    flow_net = load_model(lambda: FusionNet(ngf=32),
+                          os.path.join(case, "flow.pth")).cuda().eval()
+    k = CLI_IDS[0]
+    with torch.inference_mode():
+        deg = np.asarray(Image.open(os.path.join(root, "data", "sff",
+                                                 f"{k:04d}.png")))
+        interp = np.asarray(Image.open(os.path.join(
+            case, "out_f32", "sff_interp", f"{k:04d}.png")))
+        x = torch.from_numpy(np.stack([deg] * 3 + [interp] * 3)[None]).cuda()
+        hp = -(-CLI_SIZE // 16) * 16
+        x = torch.nn.functional.pad(x.float() / 255.0, (0, hp - CLI_SIZE,
+                                                        0, hp - CLI_SIZE),
+                                    mode="replicate")
+        flow = flow_net(x)[:, :, :CLI_SIZE, :CLI_SIZE].permute(0, 2, 3, 1)
+        epe = float(losses.epe(flow, torch.from_numpy(flows[k][None]).cuda()))
+    say(f"sff cli infer_unfolding section {k} EPE against the synthesized "
+        "flow (random weights)", epe)
+    assert np.isfinite(epe), epe
+    return {"unfolding_warps": 2 * n, "single_sepconvs": 4}
+
+
 SP_KERNELS = (
     # JSON name prefix, source, TPU kernel body, where its launches come from
     ("conv3x3_fused[probe", "sstem_tpu_torch/csrc/conv3x3_fused.cu",
@@ -2197,7 +2649,6 @@ def main():
     from sstem_tpu_torch import config
     from sstem_tpu_torch.data import synth_stack
     from sstem_tpu_torch.kernels import _build, serving_warp
-    from sstem_tpu_torch.ops.flow import fold_flows
     from sstem_tpu_torch.ops.warp import spatial_transform
 
     config.disable_tf32()
@@ -2217,15 +2668,13 @@ def main():
     f32, bf16 = config.PARITY_DTYPE, config.SERVING_DTYPE
     sep_err = {c: check_sepconv(*c, gen) for c in SEPCONV_CHECKS}
 
-    phase("4 warp kernel vs plain")
-    im = rand((4, 1280, 1280, 1), gen)
-    fold = torch.from_numpy(fold_flows(4, 1280, 1280, SEED)).cuda()
-    warp_err = check_warp(im, fold, "fold")
+    phase("4 warp kernel vs plain, every WARP_CHECKS shape")
+    warp_cases = {c: warp_inputs(*c, gen) for c in WARP_CHECKS}
+    warp_err = {c: check_warp(*warp_cases[c], "paths") for c in WARP_CHECKS}
+    im, fold = warp_cases[(4, 1280, 1280)]
     far = (rand((4, 1280, 1280, 2), gen) - 0.5) * (6 * 1280)
-    warp_err = max(warp_err, check_warp(im, far, "far-out-of-range"))
-    odd = rand((2, 250, 333, 1), gen)
-    warp_err = max(warp_err, check_warp(
-        odd, (rand((2, 250, 333, 2), gen) - 0.5) * 40, "odd-size"))
+    warp_err[(4, 1280, 1280)] = max(warp_err[(4, 1280, 1280)],
+                                    check_warp(im, far, "far-out-of-range"))
 
     phase("5 pipeline card vs cpu (K=51, float32, TF32 off)")
     small = synth_stack(5, 150, 170, seed=0)
@@ -2281,6 +2730,33 @@ def main():
     phase(f"20 the SFF inference CLIs at {CLI_SIZE}^2")
     sff_cli_phase()
 
+    phase("21 SFF correction and fusion training at full width: FusionNet "
+          f"ngf 32, batch {SFF_TRAIN_BATCH}, {SFF_TRAIN_CROP}^2 crops to "
+          f"{SFF_TRAIN_DET}^2, L1, AdamW, float32 (bench.py:394-399)")
+    train21 = sff_training_phase(os.path.join(OUT, "sff_cli", "interp.pth"))
+
+    phase(f"22 infer_unfolding and infer_interp_single at {CLI_SIZE}^2")
+    cli22 = sff_serving_cli_phase()
+
+    phase("21-22 the kernels at the new paths' shapes (CUDA events)")
+    for shape in ((SFF_TRAIN_BATCH, SFF_TRAIN_DET, SFF_TRAIN_DET),
+                  (1, CLI_SIZE, CLI_SIZE)):
+        im_s, flow_s = warp_cases[shape]
+        times[shape] = timing(
+            cuda_ms(lambda: serving_warp(im_s, flow_s), reps=20),
+            cuda_ms(lambda: spatial_transform(im_s, flow_s), reps=5), None,
+            (shape[0] * shape[1] * shape[2] * (4 + 8 + 4) / HBM_BYTES_PER_S
+             * 1e3, "bytes"))
+        say_timing(f"warp_bilinear[{shape[0]}x{shape[1]}x{shape[2]}]",
+                   times[shape])
+    new_sepconv = {"trainingset": (TRAININGSET_BS, 1, TRAININGSET_SIZE,
+                                   TRAININGSET_SIZE, K, "float32", "float32"),
+                   "interp_single": (1, 1, 1280, 1280, K, "float32", "float32")}
+    for name, sig in new_sepconv.items():
+        times[name] = time_sepconv(*sig, gen)
+        say_timing(f"sepconv_fwd[{name} {sig[0]}x1x{sig[2]}^2 f32]",
+                   times[name])
+
     kernels = []
     for name, dt in (("f32", "float32"), ("bf16", "bfloat16")):
         kernels.append({
@@ -2296,7 +2772,7 @@ def main():
         "source": "sstem_tpu_torch/csrc/warp_bilinear.cu",
         "replaces": "sstem_tpu/kernels/warp_band.py:64",
         "launches": sum(v["warp_bilinear"] for v in launches.values()),
-        "max_abs_err": warp_err, "ms": times["warp"][0],
+        "max_abs_err": warp_err[(4, 1280, 1280)], "ms": times["warp"][0],
         "plain_ms": times["warp"][1],
         "bound_ms": warp_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None})
@@ -2312,6 +2788,37 @@ def main():
         "replaces": "sstem_tpu/kernels/sepconv.py:287",
         "launches": train_launches["sepconv_bwd"],
         "max_abs_err": bwd_train_err, **times["sepconv_bwd"]})
+    # the slice's paths: the fusion trainer's warp (its main runs), the
+    # unfolding CLI's, the two interp CLIs' sepconvs and train_interp
+    # --device-datagen's sepconvs (the training signature, timed in phase 11)
+    for shape, path, n_launches in (
+            ((SFF_TRAIN_BATCH, SFF_TRAIN_DET, SFF_TRAIN_DET), "fusion_step",
+             train21["fusion_main"]),
+            ((1, CLI_SIZE, CLI_SIZE), "infer_unfolding",
+             cli22["unfolding_warps"])):
+        kernels.append({
+            "name": f"warp_bilinear[{path} {shape[0]}x{shape[1]}x{shape[2]}]",
+            "route": "cuda", "source": "sstem_tpu_torch/csrc/warp_bilinear.cu",
+            "replaces": "sstem_tpu/kernels/warp_band.py:64",
+            "launches": n_launches, "max_abs_err": warp_err[shape],
+            **times[shape]})
+    for name, n_launches in (("trainingset", train21["trainingset"]),
+                             ("interp_single", cli22["single_sepconvs"])):
+        kernels.append({
+            "name": f"sepconv_fwd[{name}]", "route": "cuda",
+            "source": "sstem_tpu_torch/csrc/sepconv_fwd.cu",
+            "replaces": "sstem_tpu/kernels/sepconv.py:240",
+            "launches": n_launches, "max_abs_err": sep_err[new_sepconv[name]],
+            **times[name]})
+    devgen = train21["interp_devgen"]
+    for kernel, err, t in (("fwd", fwd_train_err, times["sepconv_fwd_train"]),
+                           ("bwd", bwd_train_err, times["sepconv_bwd"])):
+        kernels.append({
+            "name": f"sepconv_{kernel}[train_interp device_datagen]",
+            "route": "cuda", "source": f"sstem_tpu_torch/csrc/sepconv_{kernel}.cu",
+            "replaces": ("sstem_tpu/kernels/sepconv.py:240" if kernel == "fwd"
+                         else "sstem_tpu/kernels/sepconv.py:287"),
+            "launches": devgen[f"sepconv_{kernel}"], "max_abs_err": err, **t})
     kernels += new_kernel_entries(packed)
     sp["err"]["sepconv_fwd[sp"] = sep_err[(SP_BATCH, 1, 1280, 1280, K,
                                            "bfloat16", "bfloat16")]

@@ -6,8 +6,9 @@ same functions in PyTorch, with hand-written CUDA kernels for Hopper
 ``sstem_tpu`` so each counterpart is easy to find:
 
   config.py   compute dtype and the TF32 policy
-  ops/        replication pad, align-corners resize, zero-border warp, fold
-              flows, the Middlebury flow rendering
+  ops/        replication pad and the loss crop, align-corners resize, the
+              zero-border and edge-clamped warps, fold flows (numpy and
+              batched torch), the Middlebury flow rendering
   kernels/    sepconv (forward and backward), warp, conv3x3, pool, deconv and
               head-tail wrappers (CUDA kernel on the card, plain torch on the
               CPU) and the nvcc/ctypes build of ``csrc/*.cu``
@@ -17,11 +18,16 @@ same functions in PyTorch, with hand-written CUDA kernels for Hopper
               the reference's YAML configs
   infer/      the SFF and SP restore pipelines and pad-to-stride
   data/       synthetic ssTEM stacks and triplet trees, augmentations, the
-              interp datasets and the threaded provider
-  losses.py   L1, L2, SSIM; metrics.py: reference PSNR and SSIM
-  train/      optimizer, train step, LR schedule, checkpoints, the loop
+              SFF fold degradation (host and batched on the device), the
+              interp, unfolding and fusion datasets, the threaded provider
+  losses.py   L1, L2, SSIM, the flow EPE family; metrics.py: reference PSNR
+              and SSIM
+  train/      optimizer, train step, LR schedule, checkpoints, the loop, the
+              degradation and crop sampling inside the step
   cli/        ``python -m sstem_tpu_torch.cli.<name>``: train_interp,
-              infer_interp, infer_fusion, test_sp_interp, test_sp_fusion
+              train_unfolding, train_fusion, infer_interp,
+              infer_interp_single, infer_interp_trainingset,
+              infer_unfolding, infer_fusion, test_sp_interp, test_sp_fusion
 
 This package imports torch, numpy and scipy, and never jax or sstem_tpu.
 """

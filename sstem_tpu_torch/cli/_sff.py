@@ -1,5 +1,6 @@
 """Shared pieces for the SFF trainers (counterpart of ``sstem_tpu/cli/_sff.py``:
-``make_schedule``, ``make_pixel_criterion`` and ``psnr_valid_loop``)."""
+``make_schedule``, ``make_pixel_criterion``, ``psnr_valid_loop`` and
+``epe_valid_loop``)."""
 
 import os
 
@@ -53,4 +54,18 @@ def psnr_valid_loop(eval_fn, dataset, device, preview_path=None, iters=None):
                 os.path.join(preview_path, "%06d.png" % iters),
                 [[to_uint8(pred), to_uint8(gt)]],
             )
+    return total / max(len(dataset), 1)
+
+
+def epe_valid_loop(eval_fn, dataset, device):
+    """Average EPE over a map-style flow dataset (main_flowfusionnet.py:266):
+    ``eval_fn`` maps a (1, 6, H, W) input to a (1, 2, H, W) flow; the
+    dataset's flows are (2, H, W)."""
+    total = 0.0
+    for k in range(len(dataset)):
+        im, gt_flow = dataset[k]
+        pred = eval_fn(torch.from_numpy(im[None]).to(device)).float()
+        gt = torch.from_numpy(gt_flow[None]).to(device)
+        total += float(losses.epe(pred.permute(0, 2, 3, 1),
+                                  gt.permute(0, 2, 3, 1)))
     return total / max(len(dataset), 1)

@@ -1,8 +1,9 @@
-"""SFF interpolation trainer (counterpart of ``sstem_tpu/cli/train_interp.py``
-on its host-streaming path; the reference's ``main_ms.py``).
+"""SFF interpolation trainer (counterpart of ``sstem_tpu/cli/train_interp.py``;
+the reference's ``main_ms.py``).
 
 Usage: python -m sstem_tpu_torch.cli.train_interp -c ms_l1loss_decay
-           [--config-dir ./config] [--max-iters N] [--device cuda|cpu]
+           [--config-dir ./config] [--max-iters N] [--device-datagen]
+           [--device cuda|cpu]
 
 Accepts unmodified reference configs (config name resolved against
 ``--config-dir``, or a path). It trains IFNet (1 frame) with K =
@@ -11,7 +12,13 @@ with the L1, L2 or SSIM loss and Adam (AdamW when ``TRAIN.weight_decay`` is
 set) under the poly warmup/decay LR. It writes ``loss.txt``, ``valid.txt``,
 preview PNGs and ``model-%06d.ckpt`` files in the reference payload, and
 resumes from the latest checkpoint when ``TRAIN.resume`` is set. It runs on
-the CUDA card unless ``--device cpu`` is given.
+the CUDA card unless ``--device cpu`` is given. With ``--device-datagen``
+the triplets live on the card as one uint8 pool and the crops, with the
+dihedral augmentations and the frame swap, are sampled there
+(``train.device_datagen.make_pool_interp_step``, L1 loss); the host streams
+only the step counter. It falls back to host streaming when the pixel
+augmentations (color jitter, noise, elastic) are on or the images differ
+in size.
 """
 
 import argparse
@@ -28,6 +35,9 @@ from sstem_tpu_torch.data.providers import (
     AugConfig, InterpTrainDataset, InterpValidDataset, Provider,
 )
 from sstem_tpu_torch.models import IFNet
+from sstem_tpu_torch.train.device_datagen import (
+    CounterProvider, make_pool_interp_step,
+)
 from sstem_tpu_torch.train.checkpoint import restore_checkpoint
 from sstem_tpu_torch.train.loop import run_training, save_collage, to_uint8
 from sstem_tpu_torch.train.trainer import (
@@ -47,6 +57,14 @@ def aug_from_cfg(data):
         elastic_trans=a.elastic_trans, alpha_range=a.ELASTIC.alpha_range,
         sigma=a.ELASTIC.sigma, shave=a.ELASTIC.shave,
     )
+
+
+def require_device(device, cli):
+    """``--device`` as a torch.device; raises when 'cuda' has no card."""
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{cli}: no CUDA device; pass --device cpu to "
+                           "train on the CPU")
+    return torch.device(device)
 
 
 def build(cfg, device="cuda", seed=0):
@@ -75,14 +93,14 @@ def main(argv=None):
     parser.add_argument("--config-dir", type=str, default="./config")
     parser.add_argument("--max-iters", type=int, default=None,
                         help="override cfg.TRAIN.total_iters")
+    parser.add_argument("--device-datagen", action="store_true",
+                        help="sample the triplet crops from a pool on the "
+                             "card (the host streams only the step counter)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="where to train (default: the CUDA card)")
     args = parser.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train_interp: no CUDA device; pass --device cpu "
-                           "to train on the CPU")
-    device = torch.device(args.device)
+    device = require_device(args.device, "train_interp")
     disable_tf32()
 
     cfg = load_sff_config(args.cfg, args.config_dir)
@@ -96,11 +114,26 @@ def main(argv=None):
         cfg, device, seed=int(rng.integers(1 << 30)))
     state = TrainState(model, opt)
 
+    aug = aug_from_cfg(cfg.DATA)
     ds = InterpTrainDataset(
         cfg.DATA.folder_name, cfg.DATA.train_txt,
-        patch_size=tuple(cfg.DATA.patch_size), aug=aug_from_cfg(cfg.DATA),
+        patch_size=tuple(cfg.DATA.patch_size), aug=aug,
     )
-    provider = Provider(ds, tr.batch_size, seed=tr.random_seed, device=device)
+    pool = None
+    if args.device_datagen:
+        # the pool step does crop, dihedral and frame swap; the pixel augs
+        # stay on the host streaming path
+        if not (aug.color_jitter or aug.gauss_noise or aug.elastic_trans):
+            pool = ds.load_pool()
+        if pool is None:
+            logger.warning("--device-datagen: falling back to host streaming "
+                           "(pixel augs, or a non-uniform or oversized pool)")
+        else:
+            logger.info("device-datagen: pool on the card %s (%.0f MB)",
+                        pool.shape, pool.nbytes / 1e6)
+            train_step = make_pool_interp_step(
+                pool, tr.batch_size, cfg.DATA.patch_size[0], device,
+                frame_swap=aug.swap, seed=int(tr.random_seed or 0))
     valid_ds = (
         InterpValidDataset(cfg.DATA.folder_name, cfg.DATA.valid_txt)
         if tr.if_valid else None
@@ -112,6 +145,8 @@ def main(argv=None):
         if ck is not None:
             load_reference(model, ck)
             start_iter = int(ck["current_iter"])
+    provider = (CounterProvider(start_iter) if pool is not None else
+                Provider(ds, tr.batch_size, seed=tr.random_seed, device=device))
 
     def valid_fn(st, iters):
         score = _sff.psnr_valid_loop(eval_fn, valid_ds, device,
@@ -139,7 +174,7 @@ def main(argv=None):
             save_path=paths["save_path"], valid_path=paths["valid_path"],
             display_freq=tr.display_freq, save_freq=tr.save_freq,
             valid_fn=valid_fn if tr.if_valid else None,
-            preview_fn=preview_fn,
+            preview_fn=None if pool is not None else preview_fn,
             writer=writer, logger=logger,
             start_iter=start_iter, schedule=schedule,
         )

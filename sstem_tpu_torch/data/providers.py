@@ -1,6 +1,7 @@
-"""Interp training data (counterpart of ``sstem_tpu/data/providers.py``:
-``AugConfig``, ``_ImageCache``, ``InterpTrainDataset``,
-``InterpValidDataset`` and ``Provider``).
+"""Training and validation data (counterpart of
+``sstem_tpu/data/providers.py``: ``AugConfig``, ``_ImageCache``,
+``_load_pool``, the interp, unfolding and fusion datasets, and ``Provider``;
+``SPDataset`` is not ported yet).
 
   * ``InterpTrainDataset`` — triplet txt reader, random crop, joint dihedral
     augs, optional frame swap / jitter / gaussian noise / elastic transform
@@ -10,6 +11,18 @@
     channels last). It draws from the numpy RNG in the JAX package's order,
     so one seed gives the same samples.
   * ``InterpValidDataset`` — map-style triplets, channels first.
+  * ``UnfoldingTrainDataset`` — a clean section and its interp image,
+    degraded on the fly (``sim_sff.degrade_sff``): a 400^2 crop centre-cropped
+    to 256^2; the label is the ground-truth unfolding flow (2, H, W)
+    (sff_scripts_unfolding/data/data_provider.py:105-175), or with
+    ``label='clean'`` the clean crop (1, H, W) / 255 (``FusionTrainDataset``,
+    line width 5..20, sff_scripts_fusion/data/data_provider.py:163-185).
+  * ``RawCropPairDataset`` — (clean, interp) uint8 crop pairs for the
+    trainers' ``--device-datagen`` path; ``load_pool`` stacks the whole set
+    as (N, 2, H, W) uint8 for a pool resident on the card.
+  * ``UnfoldingValidDataset`` (flow2 from ``<name>_flow.hdf`` sidecars,
+    read with h5py, which is imported only there) and
+    ``FusionValidDataset`` (clean ground truth), map-style.
   * ``Provider`` — an infinite batched stream from background threads. Each
     thread t draws from ``np.random.default_rng(seed + t)``, so with one
     thread the batches are the JAX provider's. ``next()`` returns NCHW
@@ -26,6 +39,7 @@ import numpy as np
 import torch
 
 from sstem_tpu_torch.data import augment
+from sstem_tpu_torch.data.sim_sff import degrade_sff
 
 
 def _read_gray(path):
@@ -72,6 +86,20 @@ def _read_rows(folder, txt):
         return [r.strip().split(" ") for r in f if r.strip()]
 
 
+def _load_pool(cache, name_rows, max_bytes):
+    """Stack rows of image names into (N, F, H, W) uint8, or None when the
+    shapes are non-uniform or the pool would exceed ``max_bytes``."""
+    shapes = {cache(n).shape for row in name_rows for n in row}
+    if len(shapes) != 1:
+        return None
+    (h, w), = shapes
+    f = len(name_rows[0])
+    if len(name_rows) * f * h * w > max_bytes:
+        return None
+    return np.stack([np.stack([cache(n) for n in row])
+                     for row in name_rows])
+
+
 class InterpTrainDataset:
     """SFF interpolation triplets -> ((6,H,W) input, (1,H,W) label)."""
 
@@ -81,6 +109,13 @@ class InterpTrainDataset:
         self.rows = _read_rows(folder, train_txt)
         self.patch_size = tuple(patch_size)
         self.aug = aug or AugConfig()
+
+    def load_pool(self, max_bytes=512 << 20):
+        """All triplets as one (N, 3, H, W) uint8 array for the trainer's
+        pool on the card (``train.device_datagen.make_pool_interp_step``),
+        or None when the images are non-uniform or the pool exceeds
+        ``max_bytes``."""
+        return _load_pool(self.cache, [r[:3] for r in self.rows], max_bytes)
 
     def sample(self, rng):
         a = self.aug
@@ -130,6 +165,165 @@ class InterpValidDataset:
         im = np.stack([imgs[0]] * 3 + [imgs[2]] * 3)
         lb = imgs[1][None]
         return im, lb
+
+
+class _CleanInterpPairs:
+    """Rows of a triplet list whose middle section is the clean image, each
+    paired with the interp image of the same row from ``interp_txt``."""
+
+    def __init__(self, folder, train_txt, interp_txt, crop_size, aug):
+        self.cache = _ImageCache(folder)
+        self.rows = _read_rows(folder, train_txt)
+        with open(os.path.join(folder, interp_txt)) as f:
+            self.interp_rows = [r.strip() for r in f if r.strip()]
+        assert len(self.rows) == len(self.interp_rows)
+        self.crop_size = crop_size
+        self.aug = aug or AugConfig()
+
+    def _crop_pair(self, rng):
+        """A random (2, c, c) [clean, interp] crop with the joint dihedral
+        augmentations, drawn in the JAX package's order."""
+        a = self.aug
+        kk = rng.integers(0, len(self.rows))
+        # the middle column of the triplet row is the section the interp
+        # image predicts
+        clean = self.cache(self.rows[kk][1])
+        interp = self.cache(self.interp_rows[kk])
+        c = self.crop_size
+        h, w = clean.shape
+        i = rng.integers(0, h - c + 1)
+        j = rng.integers(0, w - c + 1)
+        stack = np.stack([clean[i:i + c, j:j + c], interp[i:i + c, j:j + c]])
+        return augment.dihedral(stack, rng, a.random_fliplr, a.random_flipud,
+                                a.random_flipz, a.random_rotation)
+
+
+class UnfoldingTrainDataset(_CleanInterpPairs):
+    """Clean + interp pairs degraded on the fly -> ((6, det, det) input
+    [degraded x3 ++ interp x3] / 255, label).
+
+    label='flow'  -> the ground-truth unfolding flow2 (2, det, det)
+                     [unfolding trainer]
+    label='clean' -> the clean centre crop (1, det, det) / 255
+                     [fusion trainer]
+    The reference's 'swap' aug at this layer indexes a frame that does not
+    exist (im_lb[2]); configs ship swap=False and it is not re-created.
+    """
+
+    def __init__(self, folder, train_txt, interp_txt, crop_size=400,
+                 det_size=256, label="flow", line_width_range=(5, 50),
+                 gt_line=False, aug: AugConfig = None):
+        super().__init__(folder, train_txt, interp_txt, crop_size, aug)
+        self.det_size = det_size
+        self.offset = (crop_size - det_size) // 2
+        self.label = label
+        self.line_width_range = line_width_range
+        self.gt_line = gt_line
+
+    def sample(self, rng):
+        a = self.aug
+        stack = self._crop_pair(rng)
+        img2 = stack[0]
+        if a.color_jitter:
+            img2 = augment.color_jitter(img2, rng, a.brightness, a.contrast,
+                                        a.saturation)
+        off = self.offset
+        clean_c = img2[off:-off, off:-off].copy()
+
+        d = degrade_sff(img2, rng, det_size=self.det_size,
+                        line_width_range=self.line_width_range)
+        degraded = d["degraded"]
+        if self.gt_line:
+            clean_c = clean_c * (degraded != 0)
+
+        interp_c = stack[1][off:-off, off:-off]
+        im = np.concatenate([
+            np.repeat(degraded[None], 3, 0), np.repeat(interp_c[None], 3, 0)
+        ]).astype(np.float32) / 255.0
+        if self.label == "flow":
+            lb = np.ascontiguousarray(d["flow2"].transpose(2, 0, 1))
+        else:
+            lb = (clean_c.astype(np.float32) / 255.0)[None]
+        return im, lb
+
+
+class FusionTrainDataset(UnfoldingTrainDataset):
+    """Fusion trainer dataset: clean-crop labels, line width 5..20."""
+
+    def __init__(self, folder, train_txt, interp_txt, **kw):
+        kw.setdefault("label", "clean")
+        kw.setdefault("line_width_range", (5, 20))
+        super().__init__(folder, train_txt, interp_txt, **kw)
+
+
+class RawCropPairDataset(_CleanInterpPairs):
+    """(clean crop, interp crop) uint8 pairs for the trainers'
+    ``--device-datagen`` path (``train.device_datagen``): the host only crops
+    and augments; the degradation and the labels are made on the card."""
+
+    def __init__(self, folder, train_txt, interp_txt, crop_size=400,
+                 aug: AugConfig = None):
+        super().__init__(folder, train_txt, interp_txt, crop_size, aug)
+
+    def load_pool(self, max_bytes=512 << 20):
+        """(N, 2, H, W) uint8 clean+interp pool for sampling on the card
+        (``train.device_datagen.make_pool_step``), or None when the images
+        are non-uniform or the pool exceeds ``max_bytes``."""
+        rows = [[r[1], i] for r, i in zip(self.rows, self.interp_rows)]
+        return _load_pool(self.cache, rows, max_bytes)
+
+    def sample(self, rng):
+        stack = self._crop_pair(rng)
+        return np.ascontiguousarray(stack[0]), np.ascontiguousarray(stack[1])
+
+
+def _gray6(deg, interp):
+    """Two uint8 (H, W) images -> (6, H, W) float32 [deg x3 ++ interp x3] /
+    255."""
+    return np.stack([deg.astype(np.float32) / 255.0] * 3
+                    + [interp.astype(np.float32) / 255.0] * 3)
+
+
+class UnfoldingValidDataset:
+    """Degraded + interp images with the ground-truth flow2 from HDF5
+    sidecars -> ((6, H, W), (2, H, W)).
+
+    Row format: '<degraded.png> <interp.png> <name>_flow.hdf'; the HDF file
+    holds dataset 'flow2' (H, W, 2) (provider_valid.py:27-54)."""
+
+    def __init__(self, folder, valid_txt):
+        self.folder = folder
+        self.rows = _read_rows(folder, valid_txt)
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx):
+        import h5py
+
+        row = self.rows[idx]
+        deg = _read_gray(os.path.join(self.folder, row[0]))
+        interp = _read_gray(os.path.join(self.folder, row[1]))
+        with h5py.File(os.path.join(self.folder, row[2]), "r") as f:
+            flow2 = np.asarray(f["flow2"], np.float32)
+        return _gray6(deg, interp), np.ascontiguousarray(flow2.transpose(2, 0, 1))
+
+
+class FusionValidDataset:
+    """Degraded + interp + clean ground-truth rows -> ((6, H, W),
+    (1, H, W))."""
+
+    def __init__(self, folder, valid_txt):
+        self.folder = folder
+        self.rows = _read_rows(folder, valid_txt)
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx):
+        deg, interp, clean = (_read_gray(os.path.join(self.folder, n))
+                              for n in self.rows[idx][:3])
+        return _gray6(deg, interp), (clean.astype(np.float32) / 255.0)[None]
 
 
 class Provider:

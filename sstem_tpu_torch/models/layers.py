@@ -5,7 +5,8 @@ own; BatchNorm2d's running variance is already the unbiased one. The
 subclasses here only add the compute-dtype policy of ``config.py``: a conv
 runs in its weight's dtype and casts its input on entry (as JAX's
 ``Conv2dTorch`` casts to ``compute_dtype()``), and BatchNorm normalises in
-float32 and emits its input's dtype.
+its parameters' dtype (float32; float64 for a model cast whole, as the
+training-parity tests run it) and emits its input's dtype.
 
 Layers are created on the meta device and materialised by ``materialize``,
 which draws every initial value from an explicit ``torch.Generator``:
@@ -37,7 +38,7 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
-        return super().forward(x.float()).to(x.dtype)
+        return super().forward(x.to(self.weight.dtype)).to(x.dtype)
 
 
 def conv3x3(cin, cout):

@@ -4,7 +4,8 @@
 The reference loop surface (main_ms.py:138-288): per-step loss logging to
 the console, ``loss.txt`` and tensorboard; PNG preview collages at
 ``display_freq``; validation at ``save_freq`` (scores to ``valid.txt`` and
-tensorboard); ``model-%06d.ckpt`` saves, always including the last step.
+tensorboard); ``model-%06d.ckpt`` saves, always including the last step,
+with the optimizer's state when ``save_optimizer`` is set.
 The host syncs with the card only at those boundaries (the loss is read
 there); between them the steps queue on the card's stream.
 """
@@ -36,10 +37,15 @@ def save_collage(path, rows):
 
 def run_training(*, provider, train_step, state, total_iters,
                  cache_path, save_path, valid_path=None,
-                 display_freq=100, save_freq=1000,
+                 display_freq=100, valid_freq=100, save_freq=1000,
                  valid_fn=None, preview_fn=None, writer=None,
-                 logger=None, start_iter=0, schedule=None):
+                 logger=None, start_iter=0, save_optimizer=False,
+                 schedule=None):
     """Run the training loop. Returns the final state.
+
+    Validation runs at step 1 and every ``save_freq`` steps, as in the JAX
+    loop (which takes ``valid_freq`` and, like the reference, validates on
+    the save grid).
 
     valid_fn(state, iters) -> (scalar, name)
     preview_fn(state, batch, iters) -> None (writes collages to cache_path)
@@ -92,6 +98,8 @@ def run_training(*, provider, train_step, state, total_iters,
 
             # always checkpoint the final iteration, even off the save_freq grid
             if iters % save_freq == 0 or iters == total_iters:
-                save_checkpoint(save_path, iters, state.model.state_dict())
+                save_checkpoint(
+                    save_path, iters, state.model.state_dict(),
+                    opt_state=state.opt.state_dict() if save_optimizer else None)
                 logger.info("saved checkpoint at iters = %d", iters)
     return state

@@ -40,6 +40,19 @@ class Optimizer:
         self.inner.step()
         self.count += 1
 
+    def state_dict(self):
+        """torch's optimizer state dict (the reference checkpoints'
+        ``optimizer_weights``): Adam's moments and each parameter's step."""
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state):
+        """Restore the moments and the schedule's count (the parameters'
+        step, which every update advances together)."""
+        self.inner.load_state_dict(state)
+        steps = [int(s["step"]) for s in self.inner.state.values()
+                 if "step" in s]
+        self.count = max(steps, default=0)
+
 
 def make_optimizer(params, schedule, weight_decay=None, b1=0.9, b2=0.999,
                    eps=1e-8):

@@ -8,9 +8,11 @@ kernel-vs-plain check lists, which phases 12 and 16 run on the card, and
 have a kernel design; so must every head-tail and sepconv call, scaled to
 the full-width run, in HEAD_TAIL_CHECKS and SEPCONV_CHECKS (phases 3 and
 12). The interp trainer's sepconv backwards, recorded from one backward of
-IFNet(51), must be in SEPCONV_BWD_CHECKS (phases 8, 10 and 11). A path that
-starts calling a new signature fails here before it reaches the card. No
-JAX.
+IFNet(51), must be in SEPCONV_BWD_CHECKS (phases 8, 10 and 11); the
+fusion trainer's step and the unfolding and interp CLIs, scaled likewise,
+must warp at WARP_CHECKS shapes and run sepconvs at SEPCONV_CHECKS
+signatures (phases 4, 3, 21 and 22). A path that starts calling a new
+signature fails here before it reaches the card. No JAX.
 """
 
 import importlib
@@ -346,3 +348,103 @@ def test_check_lists_run_at_full_width(smoke):
         for c in checks:
             assert c[0] == n and c[1] == c[2] and c[1] in sizes, c
             assert (*c[:5], c[6]) in rows
+
+
+# ---------------------------------------------------------------------------
+# the SFF correction and fusion slice: the fusion trainer's step and the
+# unfolding and interp CLIs (phases 21 and 22)
+# ---------------------------------------------------------------------------
+
+def test_fusion_step_warp_is_checked_on_the_card(smoke):
+    """One fusion step on each datagen path (batch SFF_TRAIN_BATCH of 50^2
+    crops to 32^2, zeroed FusionNet ngf 32, ``build``'s UNetSFF) warps once,
+    at a shape that, scaled to the card's 256^2 crops, is in WARP_CHECKS
+    (phase 4 checks it, phase 21 asserts 1 a step)."""
+    from sstem_tpu_torch.cli import train_fusion
+    from sstem_tpu_torch.compat.config import AttrDict
+    from sstem_tpu_torch.train.trainer import TrainState, make_train_step
+
+    n, det = smoke.SFF_TRAIN_BATCH, 32
+    with skip_init():
+        flow_net = _zeroed(FusionNet(ngf=32)).eval().requires_grad_(False)
+    cfg = AttrDict({"TRAIN": {"output_nc": 1, "base_lr": 1e-4, "end_lr": 1e-4,
+                              "weight_decay": 1e-4}})
+    unet, opt, host_step, _, _ = train_fusion.build(cfg, flow_net, "cpu")
+    device_step = make_train_step(train_fusion.make_fusion_devgen_loss(
+        flow_net, det_size=det))
+    clean = torch.zeros(n, 50, 50, dtype=torch.uint8)
+    for step, batch in ((host_step, (torch.zeros(n, 6, det, det),
+                                     torch.zeros(n, 1, det, det))),
+                        (device_step, (clean, clean, 1))):
+        with smoke.KernelSignatures() as sig:
+            step(TrainState(unet, opt), batch)
+        scale = smoke.SFF_TRAIN_DET // det
+        assert {(k[0], k[1] * scale, k[2] * scale): v
+                for k, v in sig.warps.items()} == {
+            (n, smoke.SFF_TRAIN_DET, smoke.SFF_TRAIN_DET): 1}
+        assert (n, smoke.SFF_TRAIN_DET, smoke.SFF_TRAIN_DET) in smoke.WARP_CHECKS
+
+
+def _reference_ckpt(model, path):
+    torch.save({"model_weights": model.state_dict()}, path)
+    return str(path)
+
+
+def test_new_cli_signatures_are_checked_on_the_card(smoke, tmp_path):
+    """infer_unfolding on a 50^2 section (the card's 1250^2: scale 25),
+    infer_interp_single on a 64^2 pair (the card's 1280^2 canvas: scale 20)
+    and infer_interp_trainingset at -bs TRAININGSET_BS on 64^2 rows (the
+    card's 512^2: scale 8), zeroed K=51 IFNet and ngf-32 FusionNet: warp 1
+    a section and sepconv 2 a pair or batch, at signatures that scaled are
+    in WARP_CHECKS and SEPCONV_CHECKS (phases 4 and 3 check them, phases 21
+    and 22 assert them)."""
+    from PIL import Image
+
+    from sstem_tpu_torch.cli import (
+        infer_interp_single, infer_interp_trainingset, infer_unfolding,
+    )
+    from sstem_tpu_torch.data.synthetic import write_triplet_tree
+
+    with skip_init():
+        ifnet = _reference_ckpt(_zeroed(IFNet(smoke.K)), tmp_path / "i.pth")
+        flow = _reference_ckpt(_zeroed(FusionNet(ngf=32)), tmp_path / "f.pth")
+    bs = smoke.TRAININGSET_BS
+    tree = tmp_path / "tree"
+    write_triplet_tree(str(tree), n_triplets=bs, size=64, seed=0)
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(f"TRAIN:\n  kernel_size: {smoke.K}\n  ngf: 32\n"
+                   f"DATA:\n  folder_name: {tree}\n  train_txt: train_data.txt\n")
+    (tmp_path / "d" / "s").mkdir(parents=True)
+    (tmp_path / "d" / "s.txt").write_text("1")
+    (tmp_path / "interp").mkdir()
+    img = Image.fromarray(np.zeros((50, 50), np.uint8))
+    img.save(tmp_path / "d" / "s" / "0001.png")
+    img.save(tmp_path / "interp" / "0001.png")
+    runs = (
+        (infer_unfolding.main,
+         ["-c", str(cfg), "-ip", str(tmp_path / "d"), "-t", "s", "-op",
+          str(tmp_path / "out"), "-m", "test", "--ckpt", flow,
+          "--interp-dir", str(tmp_path / "interp")], 25),
+        (infer_interp_single.main,
+         ["-c", str(cfg), "-i1", str(tree / "0000_1.png"), "-i2",
+          str(tree / "0000_3.png"), "-o", str(tmp_path / "one.png"),
+          "--ckpt", ifnet], 1280 // 64),
+        (infer_interp_trainingset.main,
+         ["-c", str(cfg), "--ckpt", ifnet, "-bs", str(bs)],
+         smoke.TRAININGSET_SIZE // 64))
+    for main, argv, scale in runs:
+        with smoke.KernelSignatures() as sig:
+            main(argv + ["--device", "cpu"])
+        warps = {(k[0], k[1] * scale, k[2] * scale): v
+                 for k, v in sig.warps.items()}
+        maps = {(k[0], k[1], k[2], k[3] * scale, k[4] * scale, *k[5:]): v
+                for k, v in sig.maps.items()}
+        if main is infer_unfolding.main:
+            assert warps == {(1, 1250, 1250): 1} and not maps
+        else:
+            n = bs if main is infer_interp_trainingset.main else 1
+            assert not warps and sum(maps.values()) == 2
+        assert set(warps) <= set(smoke.WARP_CHECKS), warps
+        assert set(maps) <= smoke.MAP_CHECKS, maps
+        if maps:
+            assert {k[1] for k in maps} == {n}
