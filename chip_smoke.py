@@ -101,6 +101,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      shapes, the average flow and warp ms a section, and the flow net's EPE
      against the synthesized flow (finite); then the warp and sepconv at
      the new paths' shapes beside their plain versions and bounds
+ 23. the SP trainers at full width on a seeded quartet tree of 8 x 512^2
+     (write_quartet_tree): ``train_sp_interp.main``,
+     ``train_sp_correction.main`` and ``train_sp_fusion.main`` (its vfi and
+     denoise branches pretrained from the first two runs' checkpoints) for
+     3 steps each at the JAX trainers' defaults (256^2 crops, batch 1,
+     K=51, Adam, float32, TF32 off), then ``train_sp_interp --resume-torch``
+     from its step-1 checkpoint: launches asserted (sepconv forward 4 and
+     backward 4 a step in interp and fusion, 4 forwards a preview, none in
+     correction), signatures checked, the fusion run's VFI branch
+     bit-identical to the checkpoint it loaded; each ``build(cfg)`` step on
+     the card against the CPU at 2 x 64^2 (loss, gradients within
+     SP_GRAD_BOUNDS, BN statistics), then timed with a profile; then both
+     sepconv kernels at the trainers' signature beside their plain
+     versions and bounds
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -360,6 +374,19 @@ ODD_DECONV_CHECKS = (
 SFF_TRAIN_BATCH, SFF_TRAIN_CROP, SFF_TRAIN_DET = 8, 400, 256
 TRAININGSET_ROWS, TRAININGSET_SIZE, TRAININGSET_BS = 16, 512, 4
 
+# The SP trainers' workload: the JAX trainers' defaults (patch_size or 256,
+# batch_size or 1, kernel_size or 51, base_lr or 1e-4; the reference's SP
+# YAMLs are not in the repo) over a seeded quartet tree of
+# SP_TRAIN_ROWS x SP_TRAIN_SIZE^2; the card-vs-CPU steps at 2 x
+# SP_CHECK_PATCH^2.
+SP_TRAIN_ROWS, SP_TRAIN_SIZE, SP_TRAIN_PATCH, SP_TRAIN_BATCH = 8, 512, 256, 1
+SP_CHECK_PATCH = 64
+# the SP trainers' sepconv signature, forward and backward (2 frames x 2
+# sepconvs a step in train_sp_interp and train_sp_fusion, and their
+# previews)
+SP_TRAIN_SIG = (SP_TRAIN_BATCH, 1, SP_TRAIN_PATCH, SP_TRAIN_PATCH, K,
+                "float32", "float32")
+
 # The serving warp's shapes (n, h, w) that the paths launch: the SFF restore
 # (4 sections a group on the 1280^2 canvas), the fusion trainer's step
 # (SFF_TRAIN_BATCH x 256^2) and the trainers' previews (one 256^2 crop),
@@ -378,7 +405,7 @@ WARP_CHECKS = ((4, 1280, 1280), (SFF_TRAIN_BATCH, SFF_TRAIN_DET, SFF_TRAIN_DET),
 # 2 (the served path's fused head tails); the training step, 32 x 256^2;
 # infer_interp_single (one 1280^2 pair) and infer_interp_trainingset (4 x
 # 512^2); the interp trainer's validation on phase 10's 320^2 sections;
-# micro_bench. Then the remaining dtype
+# micro_bench; the SP trainers (phase 23). Then the remaining dtype
 # pair, K = 5 and 11, and odd sizes and channel counts that take the first
 # designs (sepconv W % 4 != 0; head tail Cx % 8 != 0) or the edges of the
 # new ones. Phases 3, 11 and 12 hold both designs against the plain version
@@ -389,6 +416,7 @@ SEPCONV_CHECKS = (
     (4, 1, 1280, 1280, K, "float32", "float32"),
     (2, 1, 1280, 1280, K, "bfloat16", "bfloat16"),
     (32, 1, 256, 256, K, "float32", "float32"),
+    SP_TRAIN_SIG,
     (1, 1, 1280, 1280, K, "float32", "float32"),
     (TRAININGSET_BS, 1, TRAININGSET_SIZE, TRAININGSET_SIZE, K, "float32",
      "float32"),
@@ -408,14 +436,16 @@ HEAD_TAIL_CHECKS = (
     (2, 37, 53, K, K), (2, 37, 53, 64, K),
 )
 # The sepconv backward's signatures, as SEPCONV_CHECKS writes them: the
-# training step's (the only one a path launches), then rows for the simple
+# interp training step's and the SP trainers' (the two a path launches;
+# phase 11 holds the first, phase 8 the rest), then rows for the simple
 # design (W % 4 != 0), more channels than one block's shared memory holds,
 # bf16 maps and image, and C > 1 at odd H on the blocked design. Phases 8
-# and 11 hold both designs against the plain version at each; phase 10
-# fails on a launched signature missing here, and
-# tests/test_torch_conv_shapes.py on the training step's.
+# and 11 hold both designs against the plain version at each; phases 10
+# and 23 fail on a launched signature missing here, and
+# tests/test_torch_conv_shapes.py on the training steps'.
 SEPCONV_BWD_CHECKS = (
     (32, 1, 256, 256, K, "float32", "float32"),
+    SP_TRAIN_SIG,
     (2, 3, 61, 47, 11, "float32", "float32"),
     (1, 13, 40, 40, K, "float32", "float32"),
     (2, 1, 64, 96, 5, "float32", "bfloat16"),
@@ -783,7 +813,7 @@ def train_step_card_vs_cpu(seed=SEED, hw=64, batch=2):
 
 # kernel-name fragments -> kind, first match wins (cuDNN's f32 convolutions
 # run as implicit GEMM, FFT or Winograd kernels; an FFT convolution's
-# spectra meet in a complex pointwise product)
+# spectra meet in a complex pointwise product or complex gemv)
 KERNEL_KINDS = (
     ("sepconv", "sepconv kernels"),
     ("conv3x3_fused", "conv3x3 kernel"), ("conv3x3_wgmma", "conv3x3 kernel"),
@@ -792,6 +822,7 @@ KERNEL_KINDS = (
     ("warp_bilinear", "warp kernel"),
     ("multi_tensor_apply", "optimizer"),
     ("conv", "convolution"), ("gemm", "convolution"), ("fft", "convolution"),
+    ("gemv", "convolution"),
     ("mult_and_sum_complex", "convolution"), ("flip_filter", "convolution"),
     ("winograd", "convolution"), ("xmma", "convolution"),
     ("cutlass", "convolution"), ("dgrad", "convolution"),
@@ -2213,13 +2244,14 @@ def run_main(label, main, argv, want):
     return text, sig
 
 
-def time_train_step(label, step, state, next_batch, timed=10, warm=3):
+def time_train_step(label, step, state, next_batch, timed=10, warm=3,
+                    pixels=SFF_TRAIN_BATCH * SFF_TRAIN_DET ** 2):
     """The step's ms (median of ``timed`` after ``warm``), steps/s, MP/s of
-    SFF_TRAIN_DET^2 outputs, peak memory and the kernels' launches per
-    step, each step's input from ``next_batch()`` (a provider's next batch,
-    whose wait for the host counts, or the pool step's counter); then 2
-    steps under torch.profiler. Returns (ms, launches per step by
-    kernel)."""
+    its ``pixels`` output pixels (by default SFF_TRAIN_BATCH x
+    SFF_TRAIN_DET^2), peak memory and the kernels' launches per step, each
+    step's input from ``next_batch()`` (a provider's next batch, whose wait
+    for the host counts, or the pool step's counter); then 2 steps under
+    torch.profiler. Returns (ms, launches per step by kernel)."""
     wrappers = counted_kernels()
     box = [state]
 
@@ -2250,7 +2282,7 @@ def time_train_step(label, step, state, next_batch, timed=10, warm=3):
     say(f"{label} step ms (median of {timed} after {warm} warm)", ms)
     say(f"{label} step ms runs", [t * 1e3 for t in times])
     say(f"{label} step steps_per_s", 1e3 / ms)
-    say(f"{label} step MP_per_s", SFF_TRAIN_BATCH * SFF_TRAIN_DET ** 2 / ms / 1e3)
+    say(f"{label} step MP_per_s", pixels / ms / 1e3)
     say(f"{label} step peak_memory_GiB",
         torch.cuda.max_memory_allocated() / 2 ** 30)
     for k, n in sorted(per_step.items()):
@@ -2528,6 +2560,264 @@ def sff_serving_cli_phase():
     return {"unfolding_warps": 2 * n, "single_sepconvs": 4}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: SP training
+# ---------------------------------------------------------------------------
+
+# Card-vs-CPU gradient bounds of the SP steps, as fractions of each
+# tensor's max |gradient|, fixed before the card's first reading from the
+# port's float32-vs-float64 spread on a CPU at 2 x 64^2, K=51 (three
+# batches; PERF.md section 6): the IFNet step 1.9e-6..1.8e-5 (the
+# bound of phase 9); the fusion step's VFI branch, whose gradients come
+# back through the train-mode BN nets, up to 1.2e-4; the train-mode BN
+# nets (the correction step, the fusion step's U-Nets) up to 0.13, so two
+# float32 sums may differ by twice that. The conv biases that feed a
+# train-mode BN have a true gradient of 0: float32 leaves up to 8.8e-7 of
+# noise there, bounded absolutely. The BN running statistics are forward
+# quantities.
+SP_GRAD_BOUNDS = {"ifnet": 1e-4, "vfi_behind_bn": 1e-3, "bn": 0.3}
+SP_BN_FED_BIAS_ABS = 1e-5
+SP_BN_STATS_BOUND = 1e-4
+
+
+def write_sp_train_config(root, data, txt, name, **kw):
+    """An SP trainer's config as a reference-style flat YAML over the
+    quartet tree: the JAX trainers' defaults (no patch_size, batch_size,
+    kernel_size or base_lr key), the reference's augmentations, previews
+    every 100 steps and a checkpoint every 1000 (and at the last step);
+    ``kw`` adds keys."""
+    import yaml
+
+    cfg = {"data_folder": data, "data_txt": txt, "random_seed": SEED,
+           "if_rotate": True, "if_bdadjust": True,
+           "cache_path": os.path.join(root, "caches"),
+           "save_path": os.path.join(root, "models", name),
+           "valid_freq": 100, "save_freq": 1000, **kw}
+    path = os.path.join(root, name + ".yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def run_dir(root, name):
+    """The one run directory a trainer made under ``root/models/name``."""
+    (run,) = os.listdir(os.path.join(root, "models", name))
+    return os.path.join(root, "models", name, run)
+
+
+def relu_inputs(model, x):
+    """Every ReLU input of one forward of ``model`` on ``x``, on the CPU."""
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.append(i[0].cpu()))
+             for m in model.modules() if isinstance(m, torch.nn.ReLU)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def sp_step_card_vs_cpu(name, module, cfg, ds):
+    """One step of ``module.build(cfg)`` on the card and on the CPU from the
+    same seeded weights and batch (2 x SP_CHECK_PATCH^2, float32, TF32
+    off): the loss within 1e-5 relative, each gradient within its
+    SP_GRAD_BOUNDS fraction of the CPU tensor's max |gradient|, the conv
+    biases feeding a train-mode BN within SP_BN_FED_BIAS_ABS, and the BN
+    running statistics after the step within SP_BN_STATS_BOUND of each
+    tensor's max. The IFNet bounds assume that both sides take the same
+    side of every ReLU: an input within float32 rounding of 0 can take the
+    other, both sides sound, and move a gradient by percents of its max
+    (tests/test_torch_sp_train.py). So the batch is the first of three
+    seeded ones on which the card's and the CPU's IFNet forwards agree on
+    every ReLU input's sign. Returns the worst gradient error by group."""
+    from sstem_tpu_torch.cli import train_sp_interp
+    from sstem_tpu_torch.train.trainer import TrainState
+
+    built = {dev: module.build(cfg, 1, dev, seed=SEED) for dev in ("cuda", "cpu")}
+    ifnets = {dev: getattr(b[0], "vfi", b[0]) for dev, b in built.items()}
+    for draw in range(3):
+        rng = np.random.default_rng(SEED + draw)
+        samples = [ds.sample(rng) for _ in range(2)]
+        batch = {k: torch.from_numpy(np.stack([s[k] for s in samples]))
+                 for k in samples[0]}
+        if name == "correction":
+            break
+        x = train_sp_interp.vfi_inputs(batch)
+        flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(
+            relu_inputs(ifnets["cuda"], x.cuda()), relu_inputs(ifnets["cpu"], x)))
+        say(f"sp train {name} card-vs-cpu batch {draw}: IFNet ReLU inputs "
+            "of another sign on the card", flips)
+        if flips == 0:
+            break
+    else:
+        raise AssertionError(f"sp train {name}: no batch of three keeps the "
+                             "IFNet's ReLU signs on the card")
+    out = {}
+    for dev, (model, opt, step, _, _) in built.items():
+        _, metrics = step(TrainState(model, opt),
+                          {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (float(metrics["loss"]), model)
+    (loss_card, card), (loss_cpu, cpu) = out["cuda"], out["cpu"]
+    say(f"sp train {name} card-vs-cpu loss", [loss_card, loss_cpu])
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu), (name, loss_card,
+                                                              loss_cpu)
+    bn_fed, prev = set(), None
+    for mod_name, m in cpu.named_modules():
+        if isinstance(m, torch.nn.BatchNorm2d) and prev:
+            bn_fed.add(prev + ".bias")
+        if isinstance(m, torch.nn.Conv2d):
+            prev = mod_name
+    card_params = dict(card.named_parameters())
+    worst = {}
+    for pname, p in cpu.named_parameters():
+        got, want = card_params[pname].grad.cpu(), p.grad
+        err = float((got - want).abs().max())
+        if pname in bn_fed:
+            group, tol = "bn_fed_bias_abs", SP_BN_FED_BIAS_ABS
+        else:
+            group = ("ifnet" if name == "interp" else "bn"
+                     if name == "correction" or not pname.startswith("vfi.")
+                     else "vfi_behind_bn")
+            err /= max(float(want.abs().max()), 1e-30)
+            tol = SP_GRAD_BOUNDS[group]
+        if err > worst.get(group, (0.0, ""))[0]:
+            worst[group] = (err, pname)
+        assert err <= tol, (name, pname, group, err, tol)
+    card_buffers = dict(card.named_buffers())
+    for bname, b in cpu.named_buffers():
+        if b.is_floating_point():
+            err = float((card_buffers[bname].cpu() - b).abs().max()
+                        / b.abs().max().clamp_min(1e-30))
+            worst["bn_stats"] = max(worst.get("bn_stats", (0.0, "")),
+                                    (err, bname))
+            assert err <= SP_BN_STATS_BOUND, (name, bname, err)
+    for group, (err, pname) in sorted(worst.items()):
+        say(f"sp train {name} card-vs-cpu worst {group} error ({pname})", err)
+    return worst
+
+
+def sp_training_phase():
+    """Phase 23: the SP trainers at full width on a seeded quartet tree of
+    SP_TRAIN_ROWS x SP_TRAIN_SIZE^2 (write_quartet_tree: clean sections from
+    synth_stack, sections 2 and 3 darkened inside synth_blob_mask blobs,
+    masks a and b from the blobs, interp images): train_sp_interp,
+    train_sp_correction and train_sp_fusion (the vfi and denoise branches
+    pretrained from the first two runs' checkpoints) for 3 steps each,
+    then train_sp_interp --resume-torch from its step-1 checkpoint; each
+    run's launches asserted (sepconv forward 4 and backward 4 a step in
+    interp and fusion, 4 forwards a preview; none in correction) and its
+    signatures checked. Then each build(cfg)'s step on the card against
+    the CPU (sp_step_card_vs_cpu), and timed at the JAX defaults (256^2
+    crops, batch 1, K=51, float32, TF32 off) with a profile. Returns the
+    main runs' launches for the JSON line."""
+    from sstem_tpu_torch.cli import (
+        train_sp_correction, train_sp_fusion, train_sp_interp,
+    )
+    from sstem_tpu_torch.compat.config import load_sp_config
+    from sstem_tpu_torch.data.providers import Provider, SPDataset
+    from sstem_tpu_torch.data.synthetic import write_quartet_tree
+    from sstem_tpu_torch.train.trainer import TrainState
+
+    root = os.path.join(OUT, "sp_train")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data")
+    txt = write_quartet_tree(data, SP_TRAIN_ROWS, SP_TRAIN_SIZE, seed=SEED)
+    steps = 3
+    launches = {}
+    cfg_i = write_sp_train_config(root, data, txt, "interp", save_freq=1,
+                                  if_use_vfiImg=True)
+    # 4 forwards and 4 backwards a step (2 frames x 2 sepconvs), and 4
+    # forwards for the step-1 preview
+    launches["interp"] = {"sepconv_fwd": 4 * steps + 4,
+                          "sepconv_bwd": 4 * steps}
+    _, sig = run_main("sp train train_sp_interp", train_sp_interp.main,
+                      ["-opt", cfg_i, "--max-iters", str(steps)],
+                      launches["interp"])
+    want_sig = ("sepconv", SP_TRAIN_BATCH, 1, SP_TRAIN_PATCH, SP_TRAIN_PATCH,
+                K, "float32", "float32")
+    assert set(sig.maps) == {want_sig, ("sepconv_bwd", *want_sig[1:])}, sig.maps
+    interp_dir = run_dir(root, "interp")
+    cfg_c = write_sp_train_config(root, data, txt, "correction")
+    run_main("sp train train_sp_correction", train_sp_correction.main,
+             ["-opt", cfg_c, "--max-iters", str(steps)], {})
+    correction_dir = run_dir(root, "correction")
+    for d in (interp_dir, correction_dir):
+        payload = torch.load(os.path.join(d, "model-%06d.ckpt" % steps),
+                             map_location="cpu", weights_only=True)
+        assert "optimizer_weights" in payload, d
+    # the fusion trainer's pretrained branches under resume_path/{vfi,denoise}
+    pretrained = os.path.join(root, "pretrained")
+    os.makedirs(pretrained)
+    os.symlink(interp_dir, os.path.join(pretrained, "vfi"))
+    os.symlink(correction_dir, os.path.join(pretrained, "denoise"))
+    fusion_keys = dict(mode="b", vfi_lr_weight=1e-20, denoise_lr_weight=1e-6,
+                       if_pretrained=True, resume_path=pretrained,
+                       if_pretrained_vfi=True, if_pretrained_denoise=True,
+                       vfi_last_iter=steps, denoise_last_iter=steps)
+    cfg_f = write_sp_train_config(root, data, txt, "fusion", **fusion_keys)
+    launches["fusion"] = dict(launches["interp"])
+    text, sig = run_main("sp train train_sp_fusion", train_sp_fusion.main,
+                         ["-opt", cfg_f, "--max-iters", str(steps)],
+                         launches["fusion"])
+    assert "vfi branch loaded" in text and "denoise branch loaded" in text
+    assert set(sig.maps) == {want_sig, ("sepconv_bwd", *want_sig[1:])}, sig.maps
+    fusion_dir = run_dir(root, "fusion")
+    assert sorted(os.listdir(fusion_dir)) == [
+        "denoise", "fusion", "model-%06d.ckpt" % steps, "vfi"], fusion_dir
+    vfi_in = torch.load(os.path.join(interp_dir, "model-%06d.ckpt" % steps),
+                        map_location="cpu", weights_only=True)["model_weights"]
+    vfi_out = torch.load(os.path.join(fusion_dir, "vfi",
+                                      "model-%06d.ckpt" % steps),
+                         map_location="cpu", weights_only=True)["model_weights"]
+    # the VFI branch at 1e-4 x 1e-20 comes out of 3 steps as it went in
+    assert all(torch.equal(vfi_in[k], v) for k, v in vfi_out.items())
+    say("sp train fusion: VFI branch bit-identical after steps", steps)
+    cfg_r = write_sp_train_config(root, data, txt, "interp_resumed",
+                                  if_use_vfiImg=True)
+    # steps 2 and 3, no preview (the next is at step 100)
+    run_main("sp train train_sp_interp --resume-torch", train_sp_interp.main,
+             ["-opt", cfg_r, "--max-iters", str(steps), "--resume-torch",
+              os.path.join(interp_dir, "model-000001.ckpt")],
+             {"sepconv_fwd": 4 * (steps - 1), "sepconv_bwd": 4 * (steps - 1)})
+    payload = torch.load(os.path.join(run_dir(root, "interp_resumed"),
+                                      "model-%06d.ckpt" % steps),
+                         map_location="cpu", weights_only=True)
+    opt_steps = {int(v["step"])
+                 for v in payload["optimizer_weights"]["state"].values()}
+    say("sp train interp resumed optimizer steps", sorted(opt_steps))
+    assert opt_steps == {steps}, opt_steps
+
+    # each build(cfg)'s step: card vs CPU, then timed at the workload
+    check_ds = SPDataset(data, txt, patch_size=SP_CHECK_PATCH)
+    ds = SPDataset(data, txt, patch_size=SP_TRAIN_PATCH)
+    ms = {}
+    for name, module, cfg_path in (("interp", train_sp_interp, cfg_i),
+                                   ("correction", train_sp_correction, cfg_c),
+                                   ("fusion", train_sp_fusion, cfg_f)):
+        cfg = load_sp_config(cfg_path)
+        sp_step_card_vs_cpu(name, module, cfg, check_ds)
+        torch.cuda.empty_cache()
+        model, opt, step, _, _ = module.build(cfg, 1, "cuda", seed=SEED)
+        provider = Provider(ds, SP_TRAIN_BATCH, seed=SEED, device="cuda")
+        try:
+            # each step restores sections 2 and 3 of a quartet
+            ms[name], per = time_train_step(
+                f"sp train {name}", step, TrainState(model, opt),
+                provider.next, pixels=2 * SP_TRAIN_BATCH * SP_TRAIN_PATCH ** 2)
+        finally:
+            provider.close()
+        want = {} if name == "correction" else {"sepconv_fwd": 4,
+                                                "sepconv_bwd": 4}
+        assert per == want, (name, per)
+        del model, opt
+        torch.cuda.empty_cache()
+    say("sp train ms_per_step interp, correction, fusion",
+        [ms["interp"], ms["correction"], ms["fusion"]])
+    return launches
+
+
 SP_KERNELS = (
     # JSON name prefix, source, TPU kernel body, where its launches come from
     ("conv3x3_fused[probe", "sstem_tpu_torch/csrc/conv3x3_fused.cu",
@@ -2645,6 +2935,11 @@ def main():
     print(GPU, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    import importlib.util
+
+    # the simulators (ROADMAP) lean on cv2
+    print("cv2 installed:", importlib.util.find_spec("cv2") is not None,
+          flush=True)
 
     from sstem_tpu_torch import config
     from sstem_tpu_torch.data import synth_stack
@@ -2702,8 +2997,7 @@ def main():
     phase("8 sepconv backward kernel vs plain, both designs, "
           "SEPCONV_BWD_CHECKS")
     # the training signature (the first row) is phase 11's
-    for c in SEPCONV_BWD_CHECKS[1:]:
-        check_sepconv_bwd(*c, gen)
+    bwd_err = {c: check_sepconv_bwd(*c, gen) for c in SEPCONV_BWD_CHECKS[1:]}
 
     phase("9 IFNet training step card vs cpu (K=51, 64^2, float32, TF32 off)")
     train_step_card_vs_cpu()
@@ -2756,6 +3050,17 @@ def main():
         times[name] = time_sepconv(*sig, gen)
         say_timing(f"sepconv_fwd[{name} {sig[0]}x1x{sig[2]}^2 f32]",
                    times[name])
+
+    phase("23 SP training at full width: train_sp_interp, train_sp_correction "
+          f"and train_sp_fusion, IFNet K={K}, {SP_TRAIN_PATCH}^2 crops, batch "
+          f"{SP_TRAIN_BATCH}, Adam, float32 (the JAX trainers' defaults)")
+    train23 = sp_training_phase()
+    phase("23 the sepconv kernels at the SP trainers' signature (CUDA events)")
+    times["sp_train_fwd"] = time_sepconv(*SP_TRAIN_SIG, gen, reps=20)
+    times["sp_train_bwd"] = time_sepconv_bwd(*SP_TRAIN_SIG, gen)
+    for kernel in ("fwd", "bwd"):
+        say_timing(f"sepconv_{kernel}[sp train {SP_TRAIN_BATCH}x1x"
+                   f"{SP_TRAIN_PATCH}^2 f32]", times[f"sp_train_{kernel}"])
 
     kernels = []
     for name, dt in (("f32", "float32"), ("bf16", "bfloat16")):
@@ -2819,6 +3124,17 @@ def main():
             "replaces": ("sstem_tpu/kernels/sepconv.py:240" if kernel == "fwd"
                          else "sstem_tpu/kernels/sepconv.py:287"),
             "launches": devgen[f"sepconv_{kernel}"], "max_abs_err": err, **t})
+    # the SP trainers' sepconvs (their main runs' launches)
+    for trainer in ("interp", "fusion"):
+        for kernel, err in (("fwd", sep_err[SP_TRAIN_SIG]),
+                            ("bwd", bwd_err[SP_TRAIN_SIG])):
+            kernels.append({
+                "name": f"sepconv_{kernel}[train_sp_{trainer}]", "route": "cuda",
+                "source": f"sstem_tpu_torch/csrc/sepconv_{kernel}.cu",
+                "replaces": ("sstem_tpu/kernels/sepconv.py:240" if kernel == "fwd"
+                             else "sstem_tpu/kernels/sepconv.py:287"),
+                "launches": train23[trainer][f"sepconv_{kernel}"],
+                "max_abs_err": err, **times[f"sp_train_{kernel}"]})
     kernels += new_kernel_entries(packed)
     sp["err"]["sepconv_fwd[sp"] = sep_err[(SP_BATCH, 1, 1280, 1280, K,
                                            "bfloat16", "bfloat16")]

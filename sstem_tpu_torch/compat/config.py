@@ -1,10 +1,12 @@
-"""The reference's SFF YAML configs (counterpart of
-``sstem_tpu/compat/config.py``: ``AttrDict`` and ``load_sff_config``).
+"""The reference's YAML configs (counterpart of ``sstem_tpu/compat/config.py``:
+``AttrDict``, ``NoneDict``, ``load_sff_config`` and ``load_sp_config``).
 
-An SFF config is nested YAML resolved by *name* against a config directory,
-or given by path, and wrapped in attribute-access dicts
-(AttrDict(yaml.load(open('./config/'+name+'.yaml'))),
-sff_scripts_interp/main_ms.py:301-302).
+  * SFF: nested YAML resolved by *name* against a config directory, or
+    given by path, and wrapped in attribute-access dicts
+    (AttrDict(yaml.load(open('./config/'+name+'.yaml'))),
+    sff_scripts_interp/main_ms.py:301-302).
+  * SP: flat YAML loaded by *path* with default-None access
+    (sp_scripts_train/utils/option.py:8-43).
 """
 
 import os
@@ -29,6 +31,20 @@ class AttrDict(dict):
         self[name] = value
 
 
+class NoneDict(dict):
+    """Missing keys yield None (SP dialect helper, utils/util.py:22-34)."""
+
+    def __getattr__(self, name):
+        v = self.get(name)
+        if isinstance(v, dict) and not isinstance(v, NoneDict):
+            v = NoneDict(v)
+            self[name] = v
+        return v
+
+    def __setattr__(self, name, value):
+        self[name] = value
+
+
 def load_sff_config(name, config_dir="./config"):
     """Load an SFF config by name (or direct path) -> AttrDict."""
     path = name if os.path.isfile(name) else os.path.join(
@@ -38,3 +54,9 @@ def load_sff_config(name, config_dir="./config"):
         cfg = AttrDict(yaml.safe_load(f))
     cfg.path = path
     return cfg
+
+
+def load_sp_config(path):
+    """Load an SP flat config by path -> NoneDict (missing keys -> None)."""
+    with open(path) as f:
+        return NoneDict(yaml.safe_load(f))

@@ -1,3 +1,5 @@
-from sstem_tpu_torch.data.synthetic import synth_stack, write_triplet_tree
+from sstem_tpu_torch.data.synthetic import (
+    synth_blob_mask, synth_stack, write_triplet_tree,
+)
 
-__all__ = ["synth_stack", "write_triplet_tree"]
+__all__ = ["synth_blob_mask", "synth_stack", "write_triplet_tree"]

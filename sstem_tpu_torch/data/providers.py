@@ -1,7 +1,7 @@
 """Training and validation data (counterpart of
 ``sstem_tpu/data/providers.py``: ``AugConfig``, ``_ImageCache``,
-``_load_pool``, the interp, unfolding and fusion datasets, and ``Provider``;
-``SPDataset`` is not ported yet).
+``_load_pool``, the interp, unfolding, fusion and SP datasets, and
+``Provider``).
 
   * ``InterpTrainDataset`` — triplet txt reader, random crop, joint dihedral
     augs, optional frame swap / jitter / gaussian noise / elastic transform
@@ -23,11 +23,16 @@
   * ``UnfoldingValidDataset`` (flow2 from ``<name>_flow.hdf`` sidecars,
     read with h5py, which is imported only there) and
     ``FusionValidDataset`` (clean ground truth), map-style.
+  * ``SPDataset`` — SP quartet rows (``write_sp_txt``'s 12 columns): a
+    dict of (1, H, W) float crops in 0..1 under ``_SP_KEYS``, masks a and b
+    each with its reversal ``255 - m``, a joint 8-way dihedral and color
+    jitter on the degraded frames (sp_scripts_train/data/dataset.py).
   * ``Provider`` — an infinite batched stream from background threads. Each
     thread t draws from ``np.random.default_rng(seed + t)``, so with one
-    thread the batches are the JAX provider's. ``next()`` returns NCHW
-    tensors on the trainer's device, copied from pinned host memory with
-    ``non_blocking`` when the device is a CUDA card.
+    thread the batches are the JAX provider's. Samples are tuples or dicts
+    of arrays; ``next()`` returns a tuple or dict of NCHW tensors on the
+    trainer's device, copied from pinned host memory with ``non_blocking``
+    when the device is a CUDA card.
 """
 
 import os
@@ -326,13 +331,118 @@ class FusionValidDataset:
         return _gray6(deg, interp), (clean.astype(np.float32) / 255.0)[None]
 
 
+_SP_KEYS = [
+    "img_1", "img_2", "img_2_degra", "img_3", "img_3_degra", "img_4",
+    "img_2_degraB1_mask_gradall", "img_3_degraB1_mask_gradall",
+    "img_2_degraB1_mask_gradall_r", "img_3_degraB1_mask_gradall_r",
+    "img_2_degraB1_GenGradMask", "img_3_degraB1_GenGradMask",
+    "img_2_degraB1_GenGradMask_r", "img_3_degraB1_GenGradMask_r",
+    "img_2_degraB1_vfi", "img_3_degraB1_vfi",
+]
+
+
+def write_sp_txt(folder, num, path="sp_train_data.txt"):
+    """12-column SP row writer (gen_data_txt.py dialect)."""
+    with open(os.path.join(folder, path), "w") as f:
+        for i in range(1, num + 1):
+            stem = str(i).zfill(4)
+            cols = [f"{stem}_1.png", f"{stem}_2.png", f"{stem}_2_degra.png",
+                    f"{stem}_3.png", f"{stem}_3_degra.png", f"{stem}_4.png",
+                    f"{stem}_2_degra_maska.png", f"{stem}_3_degra_maska.png",
+                    f"{stem}_2_degra_maskb.png", f"{stem}_3_degra_maskb.png",
+                    f"{stem}_2_interp.png", f"{stem}_3_interp.png"]
+            f.write(" ".join(cols) + " \n")
+
+
+class SPDataset:
+    """SP quartet dataset -> dict of (1, H, W) float32 arrays in [0, 1].
+
+    Column order per row: clean 1/2, degraded 2, clean 3, degraded 3, clean
+    4, grad masks (a) for 2/3, generated masks (b) for 2/3 [, vfi 2/3].
+    ``data_txt`` is a path (not joined with ``data_folder``), as in the JAX
+    trainers. It draws from the numpy RNG in the JAX package's order: the
+    crop's row and column, the dihedral case, then per degraded frame the
+    jitter's coin and factors."""
+
+    def __init__(self, data_folder, data_txt, patch_size=256, if_rotate=True,
+                 if_bdadjust=True, use_vfi=False):
+        self.folder = data_folder
+        with open(data_txt) as f:
+            self.rows = [r.strip().split(" ") for r in f if r.strip()]
+        self.rows = [[c for c in row if c] for row in self.rows]
+        self.patch_size = patch_size
+        self.if_rotate = if_rotate
+        self.if_bdadjust = if_bdadjust
+        self.use_vfi = use_vfi
+        self.cache = _ImageCache(data_folder)
+
+    def __len__(self):
+        return len(self.rows)
+
+    def _load_row(self, idx):
+        row = self.rows[idx]
+        imgs = [self.cache(row[i]) for i in range(6)]
+        maska = [self.cache(row[6]), self.cache(row[7])]
+        maskb = [self.cache(row[8]), self.cache(row[9])]
+        out = imgs + maska + [255 - m for m in maska] + maskb + [
+            255 - m for m in maskb
+        ]
+        if self.use_vfi:
+            out += [self.cache(row[10]), self.cache(row[11])]
+        return out
+
+    def get(self, idx, rng):
+        imgs = self._load_row(idx)
+        h, w = imgs[0].shape[:2]
+        p = self.patch_size
+        i = rng.integers(0, h - p + 1)
+        j = rng.integers(0, w - p + 1)
+        imgs = [im[i:i + p, j:j + p] for im in imgs]
+
+        if self.if_rotate:
+            case = rng.integers(0, 8)
+            # 8-way dihedral: rot90 x {0..3} (+ fliplr), RotationFlip parity
+            imgs = [np.rot90(im, case // 2) for im in imgs]
+            if case % 2:
+                imgs = [np.fliplr(im) for im in imgs]
+
+        out = {}
+        for k, im in zip(_SP_KEYS, imgs):
+            if self.if_bdadjust and k in ("img_2_degra", "img_3_degra") and \
+                    rng.uniform() > 0.7:
+                im = augment.color_jitter(np.ascontiguousarray(im), rng,
+                                          0.2, 0.2, 0.2)
+            out[k] = (np.ascontiguousarray(im).astype(np.float32) / 255.0)[None]
+        return out
+
+    def sample(self, rng):
+        return self.get(rng.integers(0, len(self.rows)), rng)
+
+    @staticmethod
+    def dilate_mask(mask, thickness):
+        """cv2 dilation (reference DilateMask, dataset.py:238-243; unused by
+        the reference trainers)."""
+        import cv2
+
+        k = np.ones((thickness, thickness), np.uint8)
+        return cv2.dilate(np.asarray(mask), k, iterations=1)
+
+    @staticmethod
+    def erode_mask(mask, thickness):
+        """cv2 erosion (reference ErodeMask, dataset.py:245-250)."""
+        import cv2
+
+        k = np.ones((thickness, thickness), np.uint8)
+        return cv2.erode(np.asarray(mask), k, iterations=1)
+
+
 class Provider:
     """Infinite batched stream with background prefetch -> device tensors.
 
     API parity with the reference Provider (data_provider.py:289-336):
-    ``Provider(dataset, batch_size).next()`` returns the next batch, a tuple
-    of (B, ...) tensors on ``device``, from samples that are tuples of
-    arrays.
+    ``Provider(dataset, batch_size).next()`` returns the next batch on
+    ``device``: a tuple of (B, ...) tensors from samples that are tuples of
+    arrays, or a dict of them from samples that are dicts.
     """
 
     def __init__(self, dataset, batch_size, seed=555, num_threads=2,
@@ -352,7 +462,11 @@ class Provider:
     def _worker(self, rng):
         while not self._stop.is_set():
             samples = [self.dataset.sample(rng) for _ in range(self.batch_size)]
-            batch = tuple(np.stack(xs) for xs in zip(*samples))
+            if isinstance(samples[0], dict):
+                batch = {k: np.stack([s[k] for s in samples])
+                         for k in samples[0]}
+            else:
+                batch = tuple(np.stack(xs) for xs in zip(*samples))
             # retry the SAME batch on backpressure: rebuilding it costs host CPU
             while not self._stop.is_set():
                 try:
@@ -361,14 +475,19 @@ class Provider:
                 except queue.Full:
                     continue
 
-    def next(self):
-        batch = tuple(torch.from_numpy(a) for a in self._q.get())
+    def _to_device(self, a):
+        t = torch.from_numpy(a)
         if self.device.type == "cuda":
             # a fresh pinned buffer per batch: the caching host allocator
             # keeps it until the asynchronous copy has finished
-            return tuple(t.pin_memory().to(self.device, non_blocking=True)
-                         for t in batch)
-        return tuple(t.to(self.device) for t in batch)
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def next(self):
+        batch = self._q.get()
+        if isinstance(batch, dict):
+            return {k: self._to_device(a) for k, a in batch.items()}
+        return tuple(self._to_device(a) for a in batch)
 
     def close(self):
         self._stop.set()

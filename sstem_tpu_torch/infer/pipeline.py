@@ -26,6 +26,8 @@ first conv pair-folded (exact on the replicated-gray input); the warp runs
 once, on the one degraded channel, and ``warped`` stays single-channel.
 """
 
+import logging
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -84,7 +86,10 @@ class SFFPipeline:
       packed_conv: run the fused-conv serving forwards (bf16 only; the JAX
         package has no float32 packed path). False by default: the cuDNN
         path stays the default until a measurement on the card shows the
-        fused path faster.
+        fused path faster. The serving forwards target the reference
+        FusionNet width (ngf 32); with a flow model of another width the
+        pipeline is built on the cuDNN path, as the JAX pipeline sets
+        ``packed_conv = False`` when ``ngf != 32``, and logs a warning.
       fused_head_tail: with ``packed_conv``, run the IFNet head tails on the
         ``head_tail`` kernel (the JAX ``SSTEM_FUSED_HEAD_TAIL=1``) instead of
         cuDNN's upsample and conv.
@@ -99,6 +104,14 @@ class SFFPipeline:
                 f"no float32 packed path); got dtype={dtype}")
         if fused_head_tail and not packed_conv:
             raise ValueError("fused_head_tail needs packed_conv=True")
+        ngf = None if flow_model is None else \
+            flow_model.down_1.conv_1[0].out_channels
+        if packed_conv and ngf not in (None, 32):
+            logging.getLogger(__name__).warning(
+                "SFFPipeline: packed_conv=True serves the reference FusionNet "
+                "width 32; this flow model is %d wide, so the pipeline runs "
+                "on the cuDNN path", ngf)
+            packed_conv = fused_head_tail = False
         self.device = torch.device(device)
         self.pad = pad
         self.packed_conv = packed_conv

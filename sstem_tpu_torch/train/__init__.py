@@ -1,4 +1,4 @@
-from sstem_tpu_torch.train.schedules import poly_warmup_decay_lr
+from sstem_tpu_torch.train.schedules import poly_warmup_decay_lr, step_lr
 from sstem_tpu_torch.train.trainer import (
     Optimizer,
     TrainState,
@@ -8,4 +8,4 @@ from sstem_tpu_torch.train.trainer import (
 )
 
 __all__ = ["Optimizer", "TrainState", "make_eval_step", "make_optimizer",
-           "make_train_step", "poly_warmup_decay_lr"]
+           "make_train_step", "poly_warmup_decay_lr", "step_lr"]

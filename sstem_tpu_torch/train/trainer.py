@@ -7,7 +7,9 @@ at lr = schedule(t), as optax evaluates a schedule at its update count.
 With ``weight_decay`` set it is AdamW, the decoupled decay
 ``p <- p - lr_t * (m_hat / (sqrt(v_hat) + eps) + wd * p)`` that optax.adamw
 applies and that the reference applies by hand around torch Adam
-(main_ms.py:207-210); otherwise plain Adam.
+(main_ms.py:207-210); otherwise plain Adam. Parameter groups may each carry
+their own schedule (the SP fusion trainer's per-branch learning rates, as
+the JAX trainer's ``optax.multi_transform`` of one Adam per branch).
 """
 
 from dataclasses import dataclass
@@ -17,26 +19,36 @@ import torch
 
 
 class Optimizer:
-    """torch Adam or AdamW whose learning rate follows ``schedule``."""
+    """torch Adam or AdamW whose learning rate follows ``schedule``.
 
-    def __init__(self, params, schedule, weight_decay=None, b1=0.9, b2=0.999,
-                 eps=1e-8):
-        self.schedule = schedule
+    ``params`` is an iterable of tensors, or of torch param-group dicts; a
+    group's ``"schedule"`` key, where given, replaces ``schedule`` for that
+    group. The schedules live here, not in torch's param groups, so the
+    state dict holds tensors and numbers only."""
+
+    def __init__(self, params, schedule=None, weight_decay=None, b1=0.9,
+                 b2=0.999, eps=1e-8):
+        groups = list(params)
+        if not (groups and isinstance(groups[0], dict)):
+            groups = [{"params": groups}]
+        groups = [dict(g) for g in groups]
+        self.schedules = [g.pop("schedule", schedule) for g in groups]
+        for g, sched in zip(groups, self.schedules):
+            g["lr"] = float(sched(0))
         self.count = 0
-        kw = {"lr": float(schedule(0)), "betas": (b1, b2), "eps": eps}
+        kw = {"betas": (b1, b2), "eps": eps}
         if weight_decay:
-            self.inner = torch.optim.AdamW(params, weight_decay=float(weight_decay),
+            self.inner = torch.optim.AdamW(groups, weight_decay=float(weight_decay),
                                            **kw)
         else:
-            self.inner = torch.optim.Adam(params, **kw)
+            self.inner = torch.optim.Adam(groups, **kw)
 
     def zero_grad(self):
         self.inner.zero_grad(set_to_none=True)
 
     def step(self):
-        lr = float(self.schedule(self.count))
-        for group in self.inner.param_groups:
-            group["lr"] = lr
+        for group, sched in zip(self.inner.param_groups, self.schedules):
+            group["lr"] = float(sched(self.count))
         self.inner.step()
         self.count += 1
 

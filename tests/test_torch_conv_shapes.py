@@ -284,6 +284,32 @@ def test_training_backward_signatures_are_checked_on_the_card(smoke,
         assert sepconv.design(sig[3]) == "blocked", sig
 
 
+def test_sp_training_signatures_are_checked_on_the_card(smoke):
+    """One L1 step of the two-frame IFNet(51) (the SP interp and fusion
+    trainers' VFI branch) on a 32^2 crop, batch 1, scaled to the trainers'
+    256^2: 4 sepconv forwards and 4 backwards (2 frames x 2), all at
+    SP_TRAIN_SIG, which SEPCONV_CHECKS and SEPCONV_BWD_CHECKS hold (phases
+    3 and 8; phase 23 asserts them) on the blocked designs."""
+    from sstem_tpu_torch import losses
+
+    with skip_init():
+        model = _zeroed(IFNet(smoke.K, n_frames=2))
+    with smoke.KernelSignatures() as sig:
+        losses.l1_loss(model(torch.zeros(1, 6, 32, 32)),
+                       torch.ones(1, 2, 32, 32)).backward()
+    scale = smoke.SP_TRAIN_PATCH // 32
+    for kernel in ("sepconv", "sepconv_bwd"):
+        calls = {k: n for k, n in sig.maps.items() if k[0] == kernel}
+        assert sum(calls.values()) == 4, calls
+        full = {(k[1] * smoke.SP_TRAIN_BATCH, k[2], k[3] * scale,
+                 k[4] * scale, *k[5:]) for k in calls}
+        assert full == {smoke.SP_TRAIN_SIG}, full
+        assert (kernel, *smoke.SP_TRAIN_SIG) in smoke.MAP_CHECKS
+    assert smoke.SP_TRAIN_SIG in smoke.SEPCONV_CHECKS
+    assert smoke.SP_TRAIN_SIG in smoke.SEPCONV_BWD_CHECKS[1:]  # phase 8's rows
+    assert sepconv.design(smoke.SP_TRAIN_SIG[3]) == "blocked"
+
+
 def test_recorded_backward_launch_is_counted_once(smoke, monkeypatch):
     """A backward launch on the card, recorded by KernelSignatures, still
     counts once in sepconv_planar_bwd.launches (phase 10 asserts 2 a step):
