@@ -115,6 +115,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      SP_GRAD_BOUNDS, BN statistics), then timed with a profile; then both
      sepconv kernels at the trainers' signature beside their plain
      versions and bounds
+ 24. the data tools and the perceptual loss: ``simulate_sff.main`` (1024^2
+     crops, noise on) on 4 clean 1250^2 sections and ``simulate_sp.main
+     --synthetic-bank 24`` on sections 2 and 3 of 4 quartets at 1250^2
+     (host seconds a section, no kernel launched); ``gen_data_txt.main
+     --dialect sp`` on that tree and ``train_sp_correction.main`` for 3
+     steps on it; ``gen_data_txt.main --dialect sff`` on a 16 x 512^2
+     triplet tree, the valid set's items in memory (make_validset's HDF5
+     sidecars need h5py, which the card's machine lacks) and
+     ``train_unfolding.main`` for 3 steps (its preview's warp asserted),
+     its checkpoint's EPE over the valid items finite;
+     ``train_interp.main`` with TRAIN.loss perceptual and --vgg-weights (a
+     seeded VGG19 file in torchvision's layout) for 3 steps at phase 10's
+     workload (sepconv forward 2 and backward 2 a step asserted,
+     signatures phase 10's), then the steps of ``build(cfg)`` with L1 and
+     with the perceptual loss timed in one call with profiles, no gradient
+     on a VGG parameter; then the perceptual loss and its gradient,
+     MS-SSIM, metrics.psnr and metrics.ssim and the three GAN modes on the
+     card against the CPU at 2 x 1 x 64^2 within LOSS_CHECK_BOUNDS
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -123,6 +141,7 @@ script imports nothing of JAX. What it writes goes under ``build/chip_smoke/``
 in the checkout.
 """
 
+import importlib.util
 import json
 import os
 import shutil
@@ -978,7 +997,7 @@ def full_width_training(steps=3, timed=10, warm=3):
         say("train main valid", f.read().strip().splitlines())
 
     cfg = load_sff_config(cfg_path)
-    model, opt, train_step, _, _ = train_interp.build(cfg, "cuda", seed=SEED)
+    model, opt, train_step, _, _, _ = train_interp.build(cfg, "cuda", seed=SEED)
     state = TrainState(model, opt)
     provider = Provider(InterpTrainDataset(data, patch_size=(TRAIN_PATCH,) * 2),
                         TRAIN_BATCH, seed=SEED, device="cuda")
@@ -2818,6 +2837,402 @@ def sp_training_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the data tools and the perceptual loss
+# ---------------------------------------------------------------------------
+
+# The simulators' workload: SimuSFF at its default 1024^2 crop of
+# SIM_SIZE^2 sections, simu_sp on sections 2 and 3 of SIM_QUARTETS
+# quartets at SIM_SIZE^2 with a synthetic bank of SIM_BANK blobs; the
+# valid set over a triplet tree of TRAININGSET_ROWS x TRAININGSET_SIZE^2
+# (400^2 crops to 256^2, make_validset's defaults).
+SIM_SIZE, SIM_SFF_CROP, SIM_SFF_SECTIONS = 1250, 1024, 4
+SIM_QUARTETS, SIM_BANK = 4, 24
+# Card-vs-CPU bounds of step 5 (2 x 1 x 64^2, float32, TF32 off), fixed
+# before the card's first reading from the port's float32-vs-float64 spread
+# on a CPU (three draws; PERF.md section 6): the perceptual loss
+# 1.1e-8..2.1e-8 relative, its gradient 3.1e-7..3.5e-7 of the max where no
+# ReLU input sits within float32 rounding of 0 (a draw with one: 1.4e-2),
+# MS-SSIM 5e-8..2e-7 absolute, the GAN terms below 6e-8. Scalars within
+# these absolute or relative bounds, the gradient within 1e-4 of its max
+# (phase 9's bound), the CPU's VGG taking the card's side at every ReLU
+# and pool (loss_checks_card_vs_cpu).
+LOSS_CHECK_SHAPE = (2, 1, 64, 64)
+LOSS_CHECK_BOUNDS = {"perceptual_rel": 1e-5, "perceptual_grad": 1e-4,
+                     "ms_ssim": 1e-5, "psnr": 1e-4, "ssim": 1e-5,
+                     "gan": 1e-6}
+
+
+def timed_main(label, main, argv, want):
+    """``run_main``, and the host seconds it took."""
+    t0 = time.perf_counter()
+    text, sig = run_main(label, main, argv, want)
+    return text, sig, time.perf_counter() - t0
+
+
+def write_pngs(folder, images):
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    for name, img in images.items():
+        Image.fromarray(img).save(os.path.join(folder, name))
+
+
+def read_png(path):
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
+def simulators_step(root):
+    """Step 1: simulate_sff at --size SIM_SFF_CROP on SIM_SFF_SECTIONS clean
+    SIM_SIZE^2 sections, and simulate_sp --synthetic-bank SIM_BANK on
+    sections 2 and 3 of SIM_QUARTETS quartets at SIM_SIZE^2, written into
+    the quartet tree; host seconds a section. Neither launches a kernel
+    (host code in both packages). Returns the quartet tree."""
+    from sstem_tpu_torch.cli import simulate_sff, simulate_sp
+    from sstem_tpu_torch.data import synth_stack
+    from sstem_tpu_torch.data.sim_sp import MaskBank
+
+    sff_in, sff_out = os.path.join(root, "sff_clean"), os.path.join(root, "sff_sim")
+    stack = synth_stack(SIM_SFF_SECTIONS, SIM_SIZE, SIM_SIZE, seed=SEED)
+    write_pngs(sff_in, {f"{i:04d}.png": s for i, s in enumerate(stack)})
+    _, _, secs = timed_main(
+        "data tools simulate_sff", simulate_sff.main,
+        ["-p", sff_in, "-s", str(SIM_SFF_CROP), "-o", sff_out, "--seed",
+         str(SEED)], {})
+    say(f"data tools simulate_sff host s per {SIM_SIZE}^2 section "
+        f"({SIM_SFF_CROP}^2 crop, noise on)", secs / SIM_SFF_SECTIONS)
+    for i in range(SIM_SFF_SECTIONS):
+        deg = read_png(os.path.join(sff_out, f"{i:04d}_SimuSFF.png"))
+        flow = read_png(os.path.join(sff_out, f"{i:04d}_SimuSFF_flow.png"))
+        assert deg.shape == (SIM_SFF_CROP, SIM_SFF_CROP), deg.shape
+        assert flow.shape == (SIM_SFF_CROP, SIM_SFF_CROP, 3), flow.shape
+        assert (deg == 0).sum() >= 100, i  # the fold strip
+
+    tree, clean = os.path.join(root, "sp_tree"), os.path.join(root, "sp_clean23")
+    stack = synth_stack(SIM_QUARTETS + 3, SIM_SIZE, SIM_SIZE, seed=SEED + 1)
+    quartets = {f"{q + 1:04d}_{j + 1}.png": stack[q + j]
+                for q in range(SIM_QUARTETS) for j in range(4)}
+    write_pngs(tree, quartets)
+    write_pngs(clean, {n: img for n, img in quartets.items()
+                       if n[5] in "23"})
+    t0 = time.perf_counter()
+    bank = MaskBank.synthetic(n=SIM_BANK, seed=SEED)
+    say(f"data tools MaskBank.synthetic({SIM_BANK}) host s",
+        time.perf_counter() - t0)
+    say("data tools mask bank size", len(bank))
+    _, _, secs = timed_main(
+        "data tools simulate_sp", simulate_sp.main,
+        ["-p", clean, "-o", tree, "--synthetic-bank", str(SIM_BANK),
+         "--seed", str(SEED)], {})
+    n = 2 * SIM_QUARTETS
+    say(f"data tools simulate_sp host s per {SIM_SIZE}^2 section (the "
+        "bank's build included)", secs / n)
+    changed = []
+    for name in sorted(quartets):
+        if name[5] not in "23":
+            continue
+        stem = os.path.join(tree, name[:-4])
+        deg = read_png(stem + "_degra.png")
+        for suffix in ("_degra_maska.png", "_degra_maskb.png"):
+            m = read_png(stem + suffix)
+            assert m.shape == deg.shape == (SIM_SIZE, SIM_SIZE), (stem, m.shape)
+        changed.append(float((deg != quartets[name]).mean()))
+    say("data tools simulate_sp share of pixels changed per section", changed)
+    assert min(changed) > 0, changed
+    return tree
+
+
+def sp_correction_on_simulated(root, tree, steps=3):
+    """Step 2: gen_data_txt --dialect sp lists the simulated quartets, and
+    train_sp_correction trains 3 steps on them at the JAX defaults (no
+    kernel launches: the correction net has no sepconv)."""
+    from sstem_tpu_torch.cli import gen_data_txt, train_sp_correction
+    from sstem_tpu_torch.data.providers import SPDataset
+
+    run_cli("data tools gen_data_txt sp", gen_data_txt.main,
+            ["-f", tree, "-n", str(SIM_QUARTETS), "--dialect", "sp"], {})
+    txt = os.path.join(tree, "sp_train_data.txt")
+    ds = SPDataset(tree, txt)
+    assert len(ds) == SIM_QUARTETS
+    sample = ds.get(0, np.random.default_rng(SEED))
+    assert sample["img_2_degra"].shape == (1, SP_TRAIN_PATCH, SP_TRAIN_PATCH)
+    cfg = write_sp_train_config(root, tree, txt, "correction_simulated")
+    run_main("data tools train_sp_correction on simulated data",
+             train_sp_correction.main, ["-opt", cfg, "--max-iters", str(steps)],
+             {})
+    payload = torch.load(os.path.join(run_dir(root, "correction_simulated"),
+                                      "model-%06d.ckpt" % steps),
+                         map_location="cpu", weights_only=True)
+    assert "optimizer_weights" in payload
+    (cache,) = [d for d in os.listdir(os.path.join(root, "caches"))
+                if d.endswith("sp_correction")]
+    with open(os.path.join(root, "caches", cache, "loss.txt")) as f:
+        loss = float(f.read().split("loss = ")[1].split()[0])
+    say("data tools train_sp_correction step-1 loss on the simulated data",
+        loss)
+    assert np.isfinite(loss), loss
+
+
+def unfolding_with_valid_set(root, steps=3):
+    """Step 3: gen_data_txt --dialect sff lists a seeded triplet tree of
+    TRAININGSET_ROWS x TRAININGSET_SIZE^2 (the rows write_triplet_tree
+    writes); the valid set's items (make_validset's defaults: 400^2 crops
+    to 256^2) are built in memory, since make_validset's HDF5 sidecars need
+    h5py, which this machine lacks (the tests hold make_validset, its
+    files and train_unfolding's validation on them on a CPU); then
+    train_unfolding trains 3 steps (the preview's warp asserted) and its
+    checkpoint's EPE over the valid items is finite."""
+    from sstem_tpu_torch.cli import _sff, gen_data_txt, train_unfolding
+    from sstem_tpu_torch.compat.config import load_sff_config
+    from sstem_tpu_torch.compat.weights import load_reference
+    from sstem_tpu_torch.data import write_triplet_tree
+    from sstem_tpu_torch.data.providers import _gray6
+    from sstem_tpu_torch.data.validset import unfolding_valid_items
+
+    data = os.path.join(root, "sff_tree")
+    rows = write_triplet_tree(data, n_triplets=TRAININGSET_ROWS,
+                              size=TRAININGSET_SIZE, seed=SEED)
+    os.remove(os.path.join(data, "train_data.txt"))
+    run_cli("data tools gen_data_txt sff", gen_data_txt.main,
+            ["-f", data, "-n", str(TRAININGSET_ROWS), "--dialect", "sff"], {})
+    with open(os.path.join(data, "train_data.txt")) as f:
+        assert f.read().splitlines() == rows
+    with open(os.path.join(data, "interp_train_data.txt"), "w") as f:
+        f.write("\n".join(r.split()[1] for r in rows) + "\n")
+    say("data tools h5py installed (make_validset's HDF5 sidecars)",
+        importlib.util.find_spec("h5py") is not None)
+    t0 = time.perf_counter()
+    # (inputs (6, H, W), flow2 (2, H, W)), what UnfoldingValidDataset reads
+    # from make_validset's files
+    valid = [(_gray6(it["degraded"], it["interp"]),
+              np.ascontiguousarray(it["flow2"].transpose(2, 0, 1)))
+             for it in unfolding_valid_items(data, [r.split() for r in rows],
+                                             seed=SEED)]
+    say(f"data tools valid set host s per item ({SFF_TRAIN_CROP}^2 to "
+        f"{SFF_TRAIN_DET}^2)", (time.perf_counter() - t0) / len(valid))
+    cfg_path = write_sff_train_config(root, data, "unfold_simulated", {})
+    # the host path's step-1 preview warps once
+    _, sig = run_main("data tools train_unfolding", train_unfolding.main,
+                      ["-c", cfg_path, "--max-iters", str(steps)],
+                      {"warp_bilinear": 1})
+    assert set(sig.warps) == {(1, SFF_TRAIN_DET, SFF_TRAIN_DET)}, sig.warps
+    save = os.path.join(root, "models")
+    (run,) = [d for d in os.listdir(save) if d.endswith("unfold_simulated")]
+    model, _, _, eval_fn, _ = train_unfolding.build(load_sff_config(cfg_path),
+                                                    "cuda", SEED)
+    load_reference(model, os.path.join(save, run, "model-%06d.ckpt" % steps))
+    epe = _sff.epe_valid_loop(eval_fn, valid, "cuda")
+    say(f"data tools train_unfolding step-{steps} EPE over the "
+        f"{len(valid)} valid items", epe)
+    assert np.isfinite(epe) and epe > 0, epe
+    return 1
+
+
+def write_perceptual_config(root):
+    """Phase 10's interp config (its triplet tree and validation list) with
+    TRAIN.loss perceptual, and the seeded VGG19 file in torchvision's
+    layout. Returns (config path, VGG path)."""
+    import yaml
+
+    from sstem_tpu_torch.models.vgg import seeded_torchvision_vgg19
+
+    with open(os.path.join(OUT, "interp_k51_b32.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["NAME"] = "interp_k51_b32_perceptual"
+    cfg["TRAIN"]["loss"] = "perceptual"
+    cfg_path = os.path.join(root, "interp_perceptual.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    vgg_path = os.path.join(root, "vgg19_seeded.pth")
+    torch.save(seeded_torchvision_vgg19(seed=SEED), vgg_path)
+    return cfg_path, vgg_path
+
+
+def perceptual_training(root, steps=3, timed=10, warm=3):
+    """Step 4: train_interp.main with TRAIN.loss perceptual and
+    --vgg-weights at phase 10's workload for 3 steps (sepconv forward 2
+    and backward 2 a step, 2 for the preview and 2 for each of the two
+    validation images, the signatures phase 10's), then the step of
+    build(cfg) with L1 and with the perceptual loss timed in this call;
+    no gradient reaches a VGG parameter. Returns the main run's launches
+    and the two ms/step."""
+    from sstem_tpu_torch.cli import train_interp
+    from sstem_tpu_torch.compat.config import load_sff_config
+    from sstem_tpu_torch.data.providers import InterpTrainDataset, Provider
+    from sstem_tpu_torch.models.vgg import VGG19Features
+    from sstem_tpu_torch.train.trainer import TrainState
+
+    cfg_path, vgg_path = write_perceptual_config(root)
+    launches = {"sepconv_fwd": 2 * steps + 2 + 2 * 2, "sepconv_bwd": 2 * steps}
+    _, sig = run_main("perceptual train_interp", train_interp.main,
+                      ["-c", cfg_path, "--max-iters", str(steps),
+                       "--vgg-weights", vgg_path], launches)
+    train_sig = ("sepconv", TRAIN_BATCH, 1, TRAIN_PATCH, TRAIN_PATCH, K,
+                 "float32", "float32")
+    assert set(sig.maps) == {train_sig, ("sepconv_bwd", *train_sig[1:]),
+                             ("sepconv", 1, *train_sig[2:]),
+                             ("sepconv", 1, 1, 320, 320, *train_sig[5:])}, sig.maps
+
+    data = os.path.join(OUT, "data")
+    provider = Provider(InterpTrainDataset(data, patch_size=(TRAIN_PATCH,) * 2),
+                        TRAIN_BATCH, seed=SEED, device="cuda")
+    try:
+        batch = provider.next()
+    finally:
+        provider.close()
+    ms = {}
+    for loss in ("L1", "perceptual"):
+        cfg = load_sff_config(cfg_path)
+        cfg.TRAIN.loss = loss
+        model, opt, step, _, _, crit = train_interp.build(
+            cfg, "cuda", seed=SEED,
+            vgg_weights=vgg_path if loss == "perceptual" else None)
+        ms[loss], per = time_train_step(
+            f"perceptual train {loss}", step, TrainState(model, opt),
+            lambda: batch, timed=timed, warm=warm,
+            pixels=TRAIN_BATCH * TRAIN_PATCH ** 2)
+        assert per == {"sepconv_fwd": 2, "sepconv_bwd": 2}, (loss, per)
+        if loss == "perceptual":
+            vgg = crit.args[0]
+            assert isinstance(vgg, VGG19Features) and not vgg.training
+            assert all(p.grad is None and not p.requires_grad
+                       for p in vgg.parameters())
+            assert not any(k.startswith("features.")
+                           for k in model.state_dict())
+            say("perceptual train: VGG parameters with a gradient", 0)
+        del model, opt, step, crit
+        torch.cuda.empty_cache()
+    say("perceptual train ms_per_step L1, perceptual",
+        [ms["L1"], ms["perceptual"]])
+    say("perceptual train ms_per_step ratio perceptual / L1",
+        ms["perceptual"] / ms["L1"])
+    return launches, ms
+
+
+def vgg_sides(vgg, replay=None):
+    """Forward hooks on every ReLU and max pool of ``vgg``. Without
+    ``replay`` they record, in call order, the side of each ReLU input and
+    the argmax of each pool; with a recorded list the layers take those
+    sides instead of their own (a ReLU passes its input where the record
+    says positive, a pool gathers at the recorded argmax), so that a
+    second forward follows the first one's path through every kink.
+    Returns (the list, the hook handles)."""
+    import torch.nn.functional as F
+
+    seen = [] if replay is None else list(replay)
+    step = iter(range(len(seen)))
+
+    def hook(m, i, o):
+        z = i[0]
+        if replay is None:
+            seen.append((z.detach() > 0).cpu() if isinstance(m, torch.nn.ReLU)
+                        else F.max_pool2d(z.detach(), 2, 2,
+                                          return_indices=True)[1].cpu())
+            return None
+        side = seen[next(step)].to(z.device)
+        if isinstance(m, torch.nn.ReLU):
+            return z * side.to(z.dtype)
+        return z.flatten(2).gather(2, side.flatten(2)).view_as(o)
+
+    hooks = [m.register_forward_hook(hook) for m in vgg.modules()
+             if isinstance(m, (torch.nn.ReLU, torch.nn.MaxPool2d))]
+    return seen, hooks
+
+
+def loss_checks_card_vs_cpu(vgg_path):
+    """Step 5: the perceptual loss and its gradient with respect to the
+    prediction, MS-SSIM, metrics.psnr and metrics.ssim and the three GAN
+    modes on the card against the CPU at LOSS_CHECK_SHAPE (float32, TF32
+    off), within LOSS_CHECK_BOUNDS. A ReLU input or pool window within
+    float32 rounding of a kink may take another side in cuDNN's sums than
+    in the CPU's (both sound) and move the gradient by percents of its max:
+    the card's first run found 1, 4 and 6 such sides on three seeded draws.
+    So the CPU's VGG takes the card's side at every ReLU and pool
+    (``vgg_sides``), and the gradient bound measures the convolutions'
+    rounding alone; the sides that differed are counted."""
+    import copy
+
+    from sstem_tpu_torch import losses, metrics
+    from sstem_tpu_torch.cli import _sff
+
+    vggs = {"cuda": _sff.load_vgg_apply(vgg_path, "cuda")}
+    vggs["cpu"] = copy.deepcopy(vggs["cuda"]).cpu()
+    rng = np.random.default_rng(SEED)
+    pred = torch.from_numpy(rng.random(LOSS_CHECK_SHAPE, dtype=np.float32))
+    target = torch.from_numpy(np.clip(
+        pred.numpy() + rng.normal(0, 0.1, LOSS_CHECK_SHAPE), 0, 1).astype(
+            np.float32))
+    out, card_sides = {}, None
+    for dev in ("cuda", "cpu"):
+        sides, hooks = vgg_sides(vggs[dev], card_sides)
+        try:
+            p = pred.to(dev).requires_grad_(True)
+            t = target.to(dev)
+            loss = losses.perceptual_loss(vggs[dev], p, t)
+            loss.backward()
+        finally:
+            for h in hooks:
+                h.remove()
+        if card_sides is None:
+            card_sides = sides
+        a, b = p.detach() * 255, t * 255
+        out[dev] = {
+            "perceptual": loss.item(), "grad": p.grad.cpu(),
+            "ms_ssim": float(losses.ms_ssim(a, b)),
+            "psnr": float(metrics.psnr(p.detach(), t)),
+            "ssim": float(metrics.ssim(a[:, 0], b[:, 0])),
+            **{f"gan {mode} {term}": float(fn(p.detach() - 0.5, t - 0.5, mode))
+               for mode in ("lsgan", "vanilla", "wgangp")
+               for term, fn in (("d_loss", losses.d_loss),
+                                ("g_loss", lambda f, r, m: losses.g_loss(f, m)))}}
+    cpu_sides, hooks = vgg_sides(vggs["cpu"])
+    try:
+        with torch.no_grad():
+            losses.perceptual_loss(vggs["cpu"], pred, target)
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len(cpu_sides) == len(card_sides)
+    say("loss checks VGG ReLU sides and pool argmaxes the CPU's own forward "
+        "takes otherwise than the card (the CPU took the card's)",
+        sum(int((a != b).sum()) for a, b in zip(card_sides, cpu_sides)))
+    card, cpu = out["cuda"], out["cpu"]
+    errors = {}
+    for key, want in cpu.items():
+        got = card[key]
+        if key == "grad":
+            err = float((got - want).abs().max() / want.abs().max())
+            bound = LOSS_CHECK_BOUNDS["perceptual_grad"]
+        elif key == "perceptual":
+            err = abs(got - want) / abs(want)
+            bound = LOSS_CHECK_BOUNDS["perceptual_rel"]
+        else:
+            err = abs(got - want)
+            bound = LOSS_CHECK_BOUNDS[key.split()[0]]
+            say(f"loss checks {key} card, cpu", [got, want])
+        errors[key] = err
+        say(f"loss checks {key} card-vs-cpu error (bound {bound})", err)
+        assert err <= bound, (key, err, bound)
+    return errors
+
+
+def data_tools_phase():
+    """Phase 24: the data tools and the perceptual loss (steps 1-5 above).
+    Returns the launches of the new runs for the JSON line."""
+    root = os.path.join(OUT, "data_tools")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    tree = simulators_step(root)
+    sp_correction_on_simulated(root, tree)
+    unfolding_warps = unfolding_with_valid_set(root)
+    launches, ms = perceptual_training(root)
+    loss_checks_card_vs_cpu(os.path.join(root, "vgg19_seeded.pth"))
+    return {"perceptual": launches, "unfolding_warps": unfolding_warps,
+            "ms": ms}
+
+
 SP_KERNELS = (
     # JSON name prefix, source, TPU kernel body, where its launches come from
     ("conv3x3_fused[probe", "sstem_tpu_torch/csrc/conv3x3_fused.cu",
@@ -2935,11 +3350,10 @@ def main():
     print(GPU, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    import importlib.util
-
-    # the simulators (ROADMAP) lean on cv2
-    print("cv2 installed:", importlib.util.find_spec("cv2") is not None,
-          flush=True)
+    # the simulators lean on cv2; make_validset's HDF5 sidecars on h5py
+    for module in ("cv2", "h5py"):
+        print(f"{module} installed:", importlib.util.find_spec(module) is not None,
+              flush=True)
 
     from sstem_tpu_torch import config
     from sstem_tpu_torch.data import synth_stack
@@ -3062,6 +3476,20 @@ def main():
         say_timing(f"sepconv_{kernel}[sp train {SP_TRAIN_BATCH}x1x"
                    f"{SP_TRAIN_PATCH}^2 f32]", times[f"sp_train_{kernel}"])
 
+    phase("24 the data tools and the perceptual loss: simulate_sff, "
+          "simulate_sp, gen_data_txt, train_sp_correction and "
+          "train_unfolding on their data, train_interp perceptual (K="
+          f"{K}, {TRAIN_BATCH} x {TRAIN_PATCH}^2), losses card vs cpu")
+    tools24 = data_tools_phase()
+    preview = (1, SFF_TRAIN_DET, SFF_TRAIN_DET)
+    im_s, flow_s = warp_cases[preview]
+    times[preview] = timing(
+        cuda_ms(lambda: serving_warp(im_s, flow_s), reps=20),
+        cuda_ms(lambda: spatial_transform(im_s, flow_s), reps=5), None,
+        (SFF_TRAIN_DET ** 2 * (4 + 8 + 4) / HBM_BYTES_PER_S * 1e3, "bytes"))
+    say_timing(f"warp_bilinear[preview 1x{SFF_TRAIN_DET}x{SFF_TRAIN_DET}]",
+               times[preview])
+
     kernels = []
     for name, dt in (("f32", "float32"), ("bf16", "bfloat16")):
         kernels.append({
@@ -3135,6 +3563,24 @@ def main():
                              else "sstem_tpu/kernels/sepconv.py:287"),
                 "launches": train23[trainer][f"sepconv_{kernel}"],
                 "max_abs_err": err, **times[f"sp_train_{kernel}"]})
+    # phase 24: train_interp's perceptual run (the training signature, timed
+    # in phase 11) and the unfolding run's preview on the simulated tree
+    for kernel, err, t in (("fwd", fwd_train_err, times["sepconv_fwd_train"]),
+                           ("bwd", bwd_train_err, times["sepconv_bwd"])):
+        kernels.append({
+            "name": f"sepconv_{kernel}[train_interp perceptual]",
+            "route": "cuda", "source": f"sstem_tpu_torch/csrc/sepconv_{kernel}.cu",
+            "replaces": ("sstem_tpu/kernels/sepconv.py:240" if kernel == "fwd"
+                         else "sstem_tpu/kernels/sepconv.py:287"),
+            "launches": tools24["perceptual"][f"sepconv_{kernel}"],
+            "max_abs_err": err, **t})
+    kernels.append({
+        "name": f"warp_bilinear[train_unfolding preview 1x{SFF_TRAIN_DET}x"
+                f"{SFF_TRAIN_DET}]",
+        "route": "cuda", "source": "sstem_tpu_torch/csrc/warp_bilinear.cu",
+        "replaces": "sstem_tpu/kernels/warp_band.py:64",
+        "launches": tools24["unfolding_warps"], "max_abs_err": warp_err[preview],
+        **times[preview]})
     kernels += new_kernel_entries(packed)
     sp["err"]["sepconv_fwd[sp"] = sep_err[(SP_BATCH, 1, 1280, 1280, K,
                                            "bfloat16", "bfloat16")]

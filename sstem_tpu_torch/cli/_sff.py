@@ -1,7 +1,8 @@
 """Shared pieces for the SFF trainers (counterpart of ``sstem_tpu/cli/_sff.py``:
-``make_schedule``, ``make_pixel_criterion``, ``psnr_valid_loop`` and
-``epe_valid_loop``)."""
+``make_schedule``, ``make_pixel_criterion``, ``load_vgg_apply``,
+``psnr_valid_loop`` and ``epe_valid_loop``)."""
 
+import functools
 import os
 
 import numpy as np
@@ -20,8 +21,10 @@ def make_schedule(tr):
                                 tr.decay_iters, tr.power)
 
 
-def make_pixel_criterion(loss_name):
-    """cfg.TRAIN.loss in {L1, L2, ssim} (main_ms.py:149-171)."""
+def make_pixel_criterion(loss_name, vgg_apply=None, vgg_weight=1.0,
+                         com_weight=1.0, loss_combine="L1"):
+    """cfg.TRAIN.loss in {L1, L2, ssim, perceptual} (main_ms.py:149-171);
+    the perceptual loss needs ``vgg_apply`` (``load_vgg_apply``)."""
     if loss_name == "L1":
         return losses.l1_loss
     if loss_name == "L2":
@@ -29,10 +32,32 @@ def make_pixel_criterion(loss_name):
     if loss_name == "ssim":
         return losses.ssim_loss
     if loss_name == "perceptual":
-        raise NotImplementedError(
-            "the perceptual loss needs VGG19 ImageNet weights, which the "
-            "port does not have yet; use L1, L2 or ssim")
+        if vgg_apply is None:
+            raise AssertionError(
+                "perceptual loss needs VGG19 weights — pass --vgg-weights "
+                "(torch vgg19-dcbb9e9d.pth)")
+        return functools.partial(
+            losses.perceptual_loss, vgg_apply, vgg_weight=vgg_weight,
+            com_weight=com_weight, combine=loss_combine,
+        )
     raise AttributeError(f"No this loss function: {loss_name}")
+
+
+def load_vgg_apply(weights_path, device):
+    """A frozen VGG19Features on ``device`` from a torchvision VGG19 state
+    dict file, called as x -> the relu{1..5}_1 taps: eval mode, no
+    parameter takes a gradient, and, being no submodule of the trained net,
+    it is in no optimizer or checkpoint."""
+    from sstem_tpu_torch.models.layers import skip_init
+    from sstem_tpu_torch.models.vgg import (
+        VGG19Features, load_torch_vgg19_features,
+    )
+
+    with skip_init():
+        model = VGG19Features()
+    model.load_state_dict(load_torch_vgg19_features(weights_path), strict=True)
+    model = model.to(device).eval().requires_grad_(False)
+    return model
 
 
 def psnr_valid_loop(eval_fn, dataset, device, preview_path=None, iters=None):

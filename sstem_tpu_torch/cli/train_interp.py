@@ -3,20 +3,21 @@ the reference's ``main_ms.py``).
 
 Usage: python -m sstem_tpu_torch.cli.train_interp -c ms_l1loss_decay
            [--config-dir ./config] [--max-iters N] [--device-datagen]
-           [--device cuda|cpu]
+           [--vgg-weights VGG19_PTH] [--device cuda|cpu]
 
 Accepts unmodified reference configs (config name resolved against
 ``--config-dir``, or a path). It trains IFNet (1 frame) with K =
 ``TRAIN.kernel_size`` on augmented triplet crops, in float32 with TF32 off,
-with the L1, L2 or SSIM loss and Adam (AdamW when ``TRAIN.weight_decay`` is
-set) under the poly warmup/decay LR. It writes ``loss.txt``, ``valid.txt``,
+with the L1, L2, SSIM or perceptual loss (the last on a frozen VGG19 from
+``--vgg-weights``, a torchvision state dict; refused without one) and Adam
+(AdamW when ``TRAIN.weight_decay`` is set) under the poly warmup/decay LR. It writes ``loss.txt``, ``valid.txt``,
 preview PNGs and ``model-%06d.ckpt`` files in the reference payload, and
 resumes from the latest checkpoint when ``TRAIN.resume`` is set. It runs on
 the CUDA card unless ``--device cpu`` is given. With ``--device-datagen``
 the triplets live on the card as one uint8 pool and the crops, with the
 dihedral augmentations and the frame swap, are sampled there
-(``train.device_datagen.make_pool_interp_step``, L1 loss); the host streams
-only the step counter. It falls back to host streaming when the pixel
+(``train.device_datagen.make_pool_interp_step``, with the same loss); the
+host streams only the step counter. It falls back to host streaming when the pixel
 augmentations (color jitter, noise, elastic) are on or the images differ
 in size.
 """
@@ -67,23 +68,34 @@ def require_device(device, cli):
     return torch.device(device)
 
 
-def build(cfg, device="cuda", seed=0):
+def build(cfg, device="cuda", seed=0, vgg_weights=None):
     """IFNet from ``seed`` on ``device`` with its optimizer, train step and
-    eval step. Returns (model, opt, train_step, eval_fn, schedule);
-    train_step(state, (inputs, target)) -> (state, metrics)."""
+    eval step. The loss is cfg.TRAIN.loss; the perceptual one runs a frozen
+    VGG19 from ``vgg_weights`` with TRAIN.vgg_weight, com_weight and
+    loss_combine (defaults 1.0, 1.0, L1; train_interp.py:46-52 of the JAX
+    package). Returns (model, opt, train_step, eval_fn, schedule,
+    criterion); train_step(state, (inputs, target)) -> (state, metrics)."""
     tr = cfg.TRAIN
     model = IFNet(kernel_size=tr.kernel_size,
                   generator=torch.Generator().manual_seed(seed)).to(device)
     schedule = _sff.make_schedule(tr)
     opt = make_optimizer(model.parameters(), schedule,
                          weight_decay=tr.weight_decay)
-    criterion = _sff.make_pixel_criterion(tr.loss)
+    vgg_apply = (_sff.load_vgg_apply(vgg_weights, device) if vgg_weights
+                 else None)
+    criterion = _sff.make_pixel_criterion(
+        tr.loss, vgg_apply,
+        vgg_weight=tr.get("vgg_weight", 1.0),
+        com_weight=tr.get("com_weight", 1.0),
+        loss_combine=tr.get("loss_combine", "L1"),
+    )
 
     def loss_fn(model, batch):
         inputs, target = batch
         return criterion(model(inputs), target), {}
 
-    return model, opt, make_train_step(loss_fn), make_eval_step(model), schedule
+    return (model, opt, make_train_step(loss_fn), make_eval_step(model),
+            schedule, criterion)
 
 
 def main(argv=None):
@@ -91,6 +103,9 @@ def main(argv=None):
     parser.add_argument("-c", "--cfg", type=str, default="ms_l1loss_decay")
     parser.add_argument("-m", "--mode", type=str, default="train")
     parser.add_argument("--config-dir", type=str, default="./config")
+    parser.add_argument("--vgg-weights", type=str, default=None,
+                        help="torchvision VGG19 state dict (vgg19-dcbb9e9d"
+                             ".pth) for TRAIN.loss: perceptual")
     parser.add_argument("--max-iters", type=int, default=None,
                         help="override cfg.TRAIN.total_iters")
     parser.add_argument("--device-datagen", action="store_true",
@@ -110,8 +125,9 @@ def main(argv=None):
     )
     rng = common.seed_everything(tr.random_seed)
 
-    model, opt, train_step, eval_fn, schedule = build(
-        cfg, device, seed=int(rng.integers(1 << 30)))
+    model, opt, train_step, eval_fn, schedule, criterion = build(
+        cfg, device, seed=int(rng.integers(1 << 30)),
+        vgg_weights=args.vgg_weights)
     state = TrainState(model, opt)
 
     aug = aug_from_cfg(cfg.DATA)
@@ -133,7 +149,8 @@ def main(argv=None):
                         pool.shape, pool.nbytes / 1e6)
             train_step = make_pool_interp_step(
                 pool, tr.batch_size, cfg.DATA.patch_size[0], device,
-                frame_swap=aug.swap, seed=int(tr.random_seed or 0))
+                frame_swap=aug.swap, seed=int(tr.random_seed or 0),
+                criterion=criterion)
     valid_ds = (
         InterpValidDataset(cfg.DATA.folder_name, cfg.DATA.valid_txt)
         if tr.if_valid else None

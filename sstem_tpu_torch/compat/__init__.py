@@ -1,4 +1,5 @@
 from sstem_tpu_torch.compat.weights import (
+    discriminator_state_dict_from_jax,
     fusionnet_state_dict_from_jax,
     ifnet_state_dict_from_jax,
     load_reference,
@@ -7,6 +8,7 @@ from sstem_tpu_torch.compat.weights import (
 )
 
 __all__ = [
+    "discriminator_state_dict_from_jax",
     "fusionnet_state_dict_from_jax",
     "ifnet_state_dict_from_jax",
     "load_reference",

@@ -26,8 +26,10 @@ def _t(a):
 
 
 def _conv(p):
-    return {"weight": _t(np.transpose(np.asarray(p["Conv_0"]["kernel"]), (3, 2, 0, 1))),
-            "bias": _t(p["Conv_0"]["bias"])}
+    out = {"weight": _t(np.transpose(np.asarray(p["Conv_0"]["kernel"]), (3, 2, 0, 1)))}
+    if "bias" in p["Conv_0"]:  # a conv without bias (the discriminators')
+        out["bias"] = _t(p["Conv_0"]["bias"])
+    return out
 
 
 def _deconv(p):
@@ -150,6 +152,44 @@ def unet_sp_state_dict_from_jax(variables):
         double_conv(f"up{i}.conv.double_conv", p[f"up{i}"]["conv"],
                     s[f"up{i}"]["conv"])
     _put(sd, "outc.conv", _conv(p["outc"]))
+    return sd
+
+
+def _disc_layout(kind, n_layers=3):
+    """(JAX module name, port ``nn.Sequential`` prefix) of each conv and BN
+    of a discriminator ``kind`` (its class name)."""
+    if kind in ("Discriminator", "Discriminator2", "Discriminator3"):
+        out = 9 if kind == "Discriminator" else 8  # behind the ZeroPad2d
+        return (("block0_conv", "model.0"), ("block1_conv", "model.2"),
+                ("block2_conv", "model.5"), ("out", f"model.{out}"))
+    if kind == "NLayerDiscriminator":
+        rows = [("conv0", "model.0")]
+        for n in range(1, n_layers + 1):
+            rows += [(f"conv{n}", f"model.{3 * n - 1}"),
+                     (f"bn{n}", f"model.{3 * n}")]
+        return tuple(rows) + (("out", f"model.{3 * n_layers + 2}"),)
+    if kind == "PixelDiscriminator":
+        return (("conv0", "net.0"), ("conv1", "net.2"), ("bn1", "net.3"),
+                ("out", "net.5"))
+    raise ValueError(f"unknown discriminator kind {kind!r}")
+
+
+def discriminator_state_dict_from_jax(variables, kind, n_layers=3):
+    """Discriminator flax variables -> the port's state dict; ``kind`` is
+    the class name (``Discriminator``, ``Discriminator2``,
+    ``Discriminator3``, ``NLayerDiscriminator``, ``PixelDiscriminator``),
+    ``n_layers`` the PatchGAN's depth. BN statistics are taken as they are
+    (flax keeps a biased running variance, PyTorch an unbiased one; a
+    loaded value is used the same way by both in eval mode)."""
+    p = variables["params"]
+    s = variables.get("batch_stats", {})
+    sd = {}
+    for ours, theirs in _disc_layout(kind, n_layers):
+        if ours.startswith("bn"):
+            _put(sd, theirs, _bn({"BatchNorm_0": p[ours]},
+                                 {"BatchNorm_0": s[ours]}))
+        else:
+            _put(sd, theirs, _conv({"Conv_0": p[ours]}))
     return sd
 
 

@@ -1,6 +1,6 @@
 """SFF (support-film-fold) degradation synthesis (counterpart of
-``sstem_tpu/data/sim_sff.py``: the host path and the batched device path;
-``SimuSFF``, the offline simulator, is not ported yet).
+``sstem_tpu/data/sim_sff.py``: the host path, the offline simulator and the
+batched device path).
 
   * ``degrade_sff`` — the train-time inline degradation
     (sff_scripts_unfolding/data/data_provider.py:180-245): a random fold line
@@ -9,6 +9,10 @@
     crop, resampled until the strip covers >= 100 zero pixels. Host numpy;
     it draws from the ``np.random.Generator`` in the JAX package's order, so
     one seed gives the same fold parameters.
+  * ``SimuSFF`` — the offline simulator (simu_sff/simuSFF.py:14-144):
+    endpoints >= size/2 apart, line width 5..20, an optional regional-contrast
+    noise box; host numpy, with the same draws in the same order as the JAX
+    package's (the crop offset, the fold, then the noise box).
   * ``degrade_sff_batch`` — the same degradation batched on the tensors'
     device: each image draws ``candidates`` fold parameter sets from an
     explicit ``torch.Generator``, all of them are synthesized in one batched
@@ -20,6 +24,7 @@
 """
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -110,6 +115,61 @@ def degrade_sff(img, rng, det_size=256, line_width_range=(5, 50),
                 params=p,
             )
     raise RuntimeError("degrade_sff: no valid fold found")
+
+
+@dataclass
+class SimuSFF:
+    """Offline SFF simulator (simu_sff/simuSFF.py parity).
+
+    Usage: ``SimuSFF(size=1024)(img, rng)`` -> (degraded, flow, mask).
+    Differences from the train-time path: endpoints must be >= size/2 apart
+    (simuSFF.py:96-112), line_width 5..20, optional regional-contrast noise
+    box 50..200 px with alpha U(0.4, 1.0) (simuSFF.py:132-144).
+    """
+
+    size: int = 1024
+    apply_noise: bool = True
+    min_zero: int = 100
+    max_tries: int = 1000
+
+    def __call__(self, img, rng):
+        height = width = self.size
+        if img.shape[0] < height or img.shape[1] < width:
+            raise ValueError(f"SimuSFF: image {img.shape} is smaller than "
+                             f"{self.size}^2")
+        i = int(rng.integers(0, img.shape[0] - height + 1))
+        j = int(rng.integers(0, img.shape[1] - width + 1))
+        crop = img[i:i + height, j:j + width]
+
+        for _ in range(self.max_tries):
+            p = sample_fold_params(
+                rng, height, width, line_width_range=(5, 20),
+                fold_width_max=80, min_endpoint_dist=height / 2,
+            )
+            flow, _, mask = gen_flow_np(height, width, p["k"], p["b"],
+                                        p["line_width"], p["fold_width"],
+                                        p["dis_k"])
+            deformed = _np_image_warp_bilinear(crop, flow)
+            deformed = (deformed * mask).astype(np.uint8)
+            if int((deformed == 0).sum()) >= self.min_zero:
+                if self.apply_noise:
+                    deformed = self.noise(deformed, rng)
+                return deformed, flow, mask
+        raise RuntimeError("SimuSFF: no valid fold found")
+
+    def noise(self, img, rng):
+        """Regional contrast box (simuSFF.py:132-144)."""
+        img = img.astype(np.float32)
+        mask = (img != 0).astype(np.float32)
+        alpha = rng.uniform(0.4, 1.0)
+        h = int(rng.integers(50, 201))
+        w = int(rng.integers(50, 201))
+        y = int(rng.integers(0, self.size - h + 1))
+        x = int(rng.integers(0, self.size - w + 1))
+        box = img[y:y + h, x:x + w]
+        img[y:y + h, x:x + w] = alpha * (box - img.mean()) + img.mean()
+        img = np.clip(img * mask, 0, 255)
+        return img.astype(np.uint8)
 
 
 # ---------------------------------------------------------------------------

@@ -84,9 +84,10 @@ def materialize(module, generator, conv_weight_init, bn_weight_std=0.0):
     """Allocate ``module``'s meta parameters on the CPU and initialise them
     (unless inside ``skip_init``).
 
-    Conv and ConvTranspose weights take ``conv_weight_init``; biases take
-    PyTorch's default bound. BatchNorm weights are 1, or normal(1, std) when
-    ``bn_weight_std`` is set; BN biases 0; running stats reset.
+    Conv and ConvTranspose weights take ``conv_weight_init``; biases, where
+    a layer has one, take PyTorch's default bound. BatchNorm weights are 1,
+    or normal(1, std) when ``bn_weight_std`` is set; BN biases 0; running
+    stats reset.
     """
     g = generator if generator is not None else torch.Generator()
     module.to_empty(device="cpu")
@@ -96,9 +97,10 @@ def materialize(module, generator, conv_weight_init, bn_weight_std=0.0):
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 conv_weight_init(m.weight, g)
-                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(m.weight)
-                bound = 1.0 / math.sqrt(fan_in)
-                nn.init.uniform_(m.bias, -bound, bound, generator=g)
+                if m.bias is not None:
+                    fan_in, _ = nn.init._calculate_fan_in_and_fan_out(m.weight)
+                    bound = 1.0 / math.sqrt(fan_in)
+                    nn.init.uniform_(m.bias, -bound, bound, generator=g)
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_running_stats()
                 if bn_weight_std:

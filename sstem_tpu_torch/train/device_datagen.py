@@ -150,7 +150,7 @@ class CounterProvider:
 
 
 def make_pool_interp_step(pool, batch, crop, device, frame_swap=False,
-                          seed=0):
+                          seed=0, criterion=losses.l1_loss):
     """Interp (IFNet) train step with triplet crops sampled on the card.
 
     pool: (N, 3, H, W) uint8 triplets. Builds the reference 6-channel input
@@ -158,7 +158,8 @@ def make_pool_interp_step(pool, batch, crop, device, frame_swap=False,
     device (sff_scripts_interp/data/data_provider.py:93-154; the reference's
     'random_flipz' is a transpose, which the 8 dihedral transforms cover;
     ``frame_swap`` reverses the neighbour order of a random half, the 'swap'
-    aug). L1 loss, as the JAX step.
+    aug). ``criterion(pred, target)`` is the loss, L1 by default (the JAX
+    step's only one).
     """
     pool = torch.as_tensor(pool).to(device)
     assert pool.dim() == 4 and pool.shape[1] == 3, tuple(pool.shape)
@@ -171,6 +172,6 @@ def make_pool_interp_step(pool, batch, crop, device, frame_swap=False,
             crops = torch.where(rev[:, None, None, None], crops.flip(1), crops)
         x = torch.cat([crops[:, 0:1].expand(-1, 3, -1, -1),
                        crops[:, 2:3].expand(-1, 3, -1, -1)], dim=1)
-        return losses.l1_loss(model(x), crops[:, 1:2]), {}
+        return criterion(model(x), crops[:, 1:2]), {}
 
     return make_train_step(loss_fn)
