@@ -133,6 +133,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      on a VGG parameter; then the perceptual loss and its gradient,
      MS-SSIM, metrics.psnr and metrics.ssim and the three GAN modes on the
      card against the CPU at 2 x 1 x 64^2 within LOSS_CHECK_BOUNDS
+ 25. the mesh restores on the one card, its device repeated in each mesh
+     (a copy between two distinct cards cannot run on one): phase 6's
+     stack through ``restore_stack_sharded`` data-parallel (dp 2, halo 0)
+     on the cuDNN bf16 path and the packed path with fused tails, against
+     ``restore_stack`` on the same zero-padded canvas within a uint8 level
+     on under 1e-3 of pixels, then dp 2 x sp 2 with halo 256 (1408 x 1280
+     slabs), both timed (ms/section, median of 3), launches per slab
+     asserted; the CPU pipeline's dp 2 x sp 2 call at 2 x 256^2 (K=51,
+     halo 64, float32) on a card mesh against a CPU mesh, with
+     ``enable_nan_checks`` on; ``infer_tiled`` of the section function
+     (tile 512, halo 64, float32) with no mesh and a 2-device mesh, the two
+     within a uint8 level, timed beside ``infer_full``; ``profile_trace``
+     around one call, its trace read back; the phase's ``StepTimer``
+     report; then every kernel of the sharded path at its slab shape
+     beside its plain version, library call and bound
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -410,12 +425,15 @@ SP_TRAIN_SIG = (SP_TRAIN_BATCH, 1, SP_TRAIN_PATCH, SP_TRAIN_PATCH, K,
 # (4 sections a group on the 1280^2 canvas), the fusion trainer's step
 # (SFF_TRAIN_BATCH x 256^2) and the trainers' previews (one 256^2 crop),
 # infer_unfolding (one 1250^2 section) and infer_fusion (one section on its
-# 1280^2 canvas); then an odd size. Phase 4 holds the kernel against its plain version at each;
-# phases 21 and 22 fail on a launched shape missing here, and
+# 1280^2 canvas); the sharded restore's slabs (phase 25: 1408 x 1280, 320
+# x 256) and the tiled restore's tiles (4 or 2 of 640^2); then an odd size.
+# Phase 4 holds the kernel against its plain version at each;
+# phases 21, 22 and 25 fail on a launched shape missing here, and
 # tests/test_torch_conv_shapes.py on the fusion step's and the CLI's.
 WARP_CHECKS = ((4, 1280, 1280), (SFF_TRAIN_BATCH, SFF_TRAIN_DET, SFF_TRAIN_DET),
                (1, SFF_TRAIN_DET, SFF_TRAIN_DET), (1, 1250, 1250),
-               (1, 1280, 1280), (2, 250, 333))
+               (1, 1280, 1280), (1, 1408, 1280), (1, 320, 256), (4, 640, 640),
+               (2, 640, 640), (2, 250, 333))
 
 # The sepconv forward's signatures (n, c, h, w, k, image dtype, maps dtype)
 # and the head tail's (n, hi, wi, cx, k) that the paths launch at full
@@ -424,11 +442,15 @@ WARP_CHECKS = ((4, 1280, 1280), (SFF_TRAIN_BATCH, SFF_TRAIN_DET, SFF_TRAIN_DET),
 # 2 (the served path's fused head tails); the training step, 32 x 256^2;
 # infer_interp_single (one 1280^2 pair) and infer_interp_trainingset (4 x
 # 512^2); the interp trainer's validation on phase 10's 320^2 sections;
-# micro_bench; the SP trainers (phase 23). Then the remaining dtype
+# micro_bench; the SP trainers (phase 23); the sharded restore's slabs
+# (phase 25: 1280^2 data-parallel, 1408 x 1280 with the 256-row halos of
+# the 1250^2 dp x sp run, 320 x 256 at its card-vs-CPU size) and the tiled
+# restore's 640^2 tiles, 4 a call (2 on each device of a 2-device mesh).
+# Then the remaining dtype
 # pair, K = 5 and 11, and odd sizes and channel counts that take the first
 # designs (sepconv W % 4 != 0; head tail Cx % 8 != 0) or the edges of the
 # new ones. Phases 3, 11 and 12 hold both designs against the plain version
-# at each; phases 6, 10, 14, 18 and 19a fail on a launched signature
+# at each; phases 6, 10, 14, 18, 19a and 25 fail on a launched signature
 # missing here, and tests/test_torch_conv_shapes.py on a packed path's.
 SEPCONV_CHECKS = (
     (4, 1, 1280, 1280, K, "bfloat16", "bfloat16"),
@@ -440,6 +462,11 @@ SEPCONV_CHECKS = (
     (TRAININGSET_BS, 1, TRAININGSET_SIZE, TRAININGSET_SIZE, K, "float32",
      "float32"),
     (1, 1, 320, 320, K, "float32", "float32"),
+    (1, 1, 1280, 1280, K, "bfloat16", "bfloat16"),
+    (1, 1, 1408, 1280, K, "bfloat16", "bfloat16"),
+    (1, 1, 320, 256, K, "float32", "float32"),
+    (4, 1, 640, 640, K, "float32", "float32"),
+    (2, 1, 640, 640, K, "float32", "float32"),
     (4, 1, 1280, 1280, K, "float32", "bfloat16"),
     (4, 1, 1280, 1280, K, "bfloat16", "float32"),
     (2, 2, 64, 96, 5, "float32", "float32"),
@@ -451,6 +478,7 @@ SEPCONV_CHECKS = (
 )
 HEAD_TAIL_CHECKS = (
     (4, 640, 640, 64, K), (2, 640, 640, 64, K),
+    (1, 640, 640, 64, K), (1, 704, 640, 64, K),
     (2, 37, 52, 56, K), (1, 9, 4, 64, K), (2, 20, 40, 64, 56),
     (2, 37, 53, K, K), (2, 37, 53, 64, K),
 )
@@ -1434,15 +1462,15 @@ def time_new_kernels(gen, calls, maps, units):
     return out
 
 
-def time_head_tail(n, gen, maps, units):
-    """The head tail at (n, 640^2, 64 channels, K) by CUDA events, with
+def time_head_tail(n, gen, maps, units, hi=640, wi=640):
+    """The head tail at (n, hi, wi, 64 channels, K) by CUDA events, with
     both designs, beside its plain version, the upsample and conv as
     PyTorch calls and its bound; its launches per unit from the recorded
     ``maps`` of a path run over ``units`` units."""
     import torch.nn.functional as F
 
     ht = head_tail_module()
-    x, w3, b3 = head_tail_inputs(n, 640, 640, 64, K, gen)
+    x, w3, b3 = head_tail_inputs(n, hi, wi, 64, K, gen)
     w3_oihw = w3.permute(3, 2, 0, 1).contiguous()
     b3_bf = b3.to(torch.bfloat16)
 
@@ -1451,16 +1479,16 @@ def time_head_tail(n, gen, maps, units):
                            scale_factor=2, mode="bilinear", align_corners=True)
         return F.conv2d(up, w3_oihw, b3_bf, padding=1)
 
-    nbytes = 2 * (n * 640 * 640 * 64 + 9 * K * K + n * K * 1280 * 1280) + 4 * K
-    flop = 2 * n * 1280 * 1280 * K * K * 9
+    nbytes = 2 * (n * hi * wi * 64 + 9 * K * K + n * K * 4 * hi * wi) + 4 * K
+    flop = 2 * n * 4 * hi * wi * K * K * 9
     t = timing(
         cuda_ms(lambda: ht.launch_entry("sstem_head_tail", x, w3, b3), 10, 2),
         cuda_ms(lambda: ht.head_tail_plain(x, w3, b3), 3),
         cuda_ms(library, 10, 2), roofline(nbytes, flop, BF16_FLOP_PER_S))
-    t.update(design=ht.design(640, 64, K),
+    t.update(design=ht.design(wi, 64, K),
              mma_ms=cuda_ms(lambda: ht.launch_entry(ht.ENTRY_POINTS["mma"], x,
                                                     w3, b3), 10, 2),
-             launches_per_unit=maps[("head_tail", n, 640, 640, 64, K)] / units)
+             launches_per_unit=maps[("head_tail", n, hi, wi, 64, K)] / units)
     return t
 
 
@@ -3233,6 +3261,359 @@ def data_tools_phase():
             "ms": ms}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the sharded stack restore, tiled inference, the debug tools
+# ---------------------------------------------------------------------------
+
+# restore_stack_sharded at full width with halo exchange (rows 1250 + 2 x
+# 256 padded to 1792, two slabs of 896 + 2 x 256 = 1408 rows each), its
+# card-vs-CPU size, and infer_tiled's tile and halo
+SHARDED_HALO = 256
+SMALL_SIZE, SMALL_HALO = 256, 64
+TILE, TILE_HALO = 512, 64
+# uint8 agreement of two sound runs (tests/test_pipeline_sharded.py:33-48)
+MAX_LEVELS, MAX_SHARE = 1, 1e-3
+SHARDED_PATHS = {"cudnn": {},
+                 "packed_fused_tail": {"packed_conv": True,
+                                       "fused_head_tail": True}}
+
+
+def zero_canvas(stack):
+    """The stack zero-padded to multiples of 32, as restore_stack_sharded
+    pads it with one space shard and halo 0."""
+    _, h, w = stack.shape
+    return np.pad(stack, [(0, 0), (0, -h % 32), (0, -w % 32)])
+
+
+def level_diff(label, got, want, ids, keys, bound=True):
+    """Prints, per output, the largest uint8 level difference over the
+    sections and the share of pixels that differ; with ``bound``, fails
+    past MAX_LEVELS or MAX_SHARE."""
+    for key in keys:
+        d = np.stack([np.abs(got[i][key].astype(np.int16)
+                             - want[i][key].astype(np.int16)) for i in ids])
+        worst, share = int(d.max()), float((d > 0).mean())
+        say(f"{label} {key} max_level_diff", worst)
+        say(f"{label} {key} share of pixels that differ", share)
+        if bound:
+            assert worst <= MAX_LEVELS and share < MAX_SHARE, (label, key,
+                                                               worst, share)
+
+
+def counted_run(label, path, units, unit, fn):
+    """``fn()`` with every kernel's count from zero and its signatures
+    recorded; asserts the path's launches per unit (PATH_LAUNCHES: one
+    section call per slab or per tiled batch) and that the signatures are
+    in the check lists. Returns (fn's result, launches)."""
+    wrappers = counted_kernels()
+    for fn_ in wrappers.values():
+        fn_.launches = 0
+    with KernelSignatures() as sig:
+        out = fn()
+        torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in wrappers.items()}
+    for k, n in launches.items():
+        if n:
+            say(f"{label} {k} launches (per {unit})", f"{n} ({n / units})")
+    want = {k: PATH_LAUNCHES[path].get(k, 0) * units for k in wrappers}
+    assert launches == want, (label, launches, want)
+    report_signatures(label, sig, units, unit,
+                      check_channels(SFF_CONV_CHECKS)
+                      | check_channels(DECONV_CHECKS, "deconv2x"))
+    return out, launches, sig
+
+
+def sharded_run(label, path, pipe, stack, ids, mesh, halo):
+    """One restore_stack_sharded call through counted_run; checks the
+    result's keys, dtypes and shapes and that the flow is finite."""
+    n_dp, n_sp = mesh.shape["data"], mesh.shape["space"]
+    slabs = -(-len(ids) // n_dp) * n_dp * n_sp
+    out, launches, sig = counted_run(
+        label, path, slabs, "slab",
+        lambda: pipe.restore_stack_sharded(stack, ids, mesh, halo=halo))
+    _, h, w = stack.shape
+    assert sorted(out) == sorted(ids)
+    for i in ids:
+        assert set(out[i]) == {"interp", "fused", "warped", "stitch", "flow"}
+        for key in ("interp", "fused", "warped", "stitch"):
+            assert out[i][key].dtype == np.uint8 and out[i][key].shape == (h, w)
+        assert out[i]["flow"].shape == (h, w, 2)
+        assert np.isfinite(out[i]["flow"]).all(), (label, i)
+    say(f"{label} interp mean level",
+        float(np.mean([out[i]["interp"] for i in ids])))
+    say(f"{label} fused mean level",
+        float(np.mean([out[i]["fused"] for i in ids])))
+    return out, launches, sig
+
+
+def ms_per_section(label, fn, sections):
+    """Host clock around ``fn()`` ending in a synchronise, the median of 3
+    per section; the caller has made one warm call."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1000 / sections
+    say(f"{label} ms_per_section (median of 3)", ms)
+    say(f"{label} ms_per_section runs", [t * 1000 / sections for t in times])
+    return ms
+
+
+def add_launches(total, launches):
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def sharded_phase(gen):
+    """Phase 25 on the one card, the mesh's devices repeated:
+
+    (a) restore_stack_sharded data-parallel only (dp 2, halo 0) on phase
+        6's stack, both bf16 paths, against restore_stack on the same
+        pipeline and the same zero-padded canvas (the sharded path pads
+        with zeros where restore_stack edge-pads; on the unpadded stack the
+        two differ by design over the receptive field of the pad band,
+        printed, not bounded); timed.
+    (b) dp 2 x sp 2 with halo exchange: at 2 x 256^2 (K=51, halo 64,
+        float32) the CPU pipeline's call on a card mesh (its models copied
+        to the card, the slabs and halos copied there) against the same
+        call on a CPU mesh (the plain kernels), with the nan checks on;
+        at 1250^2 with halo 256 on both bf16 paths, timed.
+    (c) infer_tiled of the section function (tile 512, halo 64, float32)
+        at 1250^2 with no mesh and on a 2-device mesh, the two within a
+        uint8 level; timed beside infer_full.
+    (d) profile_trace around (b)'s card call at 256^2, its trace file
+        read back; the phase's StepTimer report.
+
+    Returns the sharded and tiled runs' launches and the slab and tile
+    signatures' kernel timings for the JSON line."""
+    import torch.nn.functional as F
+
+    from sstem_tpu_torch import config
+    from sstem_tpu_torch.data import synth_stack
+    from sstem_tpu_torch.infer import infer_full, infer_tiled
+    from sstem_tpu_torch.kernels import pool2x, pool2x_plain, serving_warp
+    from sstem_tpu_torch.ops.warp import spatial_transform
+    from sstem_tpu_torch.parallel import make_mesh
+    from sstem_tpu_torch.parallel.mesh import canonical_device
+    from sstem_tpu_torch.utils import StepTimer, enable_nan_checks, profile_trace
+
+    bf16, f32 = config.SERVING_DTYPE, config.PARITY_DTYPE
+    timer = StepTimer()
+    card = canonical_device(DEV)
+    dp = make_mesh(n_data=2, devices=[card] * 2)
+    dpsp = make_mesh(n_data=2, n_space=2, devices=[card] * 4)
+    stack = synth_stack(25, 1250, 1250, seed=0)
+    ids = list(range(1, 24, 2))
+    _, h, w = stack.shape
+    canvas = zero_canvas(stack)
+    out = {"sharded": {}, "tiled": {}, "ms": {}}
+    packed_sig = None
+
+    for path, options in SHARDED_PATHS.items():
+        pipe = build_pipeline(DEV, bf16, **options)
+        label = f"25a dp2 halo0 bfloat16 {path}"
+        with timer.phase(f"a {path}"):
+            got, launches, _ = sharded_run(label, path, pipe, stack, ids, dp, 0)
+            add_launches(out["sharded"], launches)
+            want = pipe.restore_stack(canvas, ids, chunk=1)
+            want = {i: {k: v[:h, :w] for k, v in r.items()} for i, r in
+                    want.items()}
+            level_diff(f"{label} vs restore_stack on the canvas", got, want,
+                       ids, ("interp", "fused", "stitch"))
+            level_diff(f"{label} vs restore_stack on the unpadded stack "
+                       "(zero vs edge pad, by design)", got,
+                       pipe.restore_stack(stack, ids, chunk=1), ids,
+                       ("interp", "fused", "stitch"), bound=False)
+            out["ms"][f"a {path}"] = ms_per_section(
+                label, lambda: pipe.restore_stack_sharded(stack, ids, dp,
+                                                          halo=0), len(ids))
+        label = f"25b dp2xsp2 halo{SHARDED_HALO} bfloat16 {path}"
+        with timer.phase(f"b {path}"):
+            _, launches, sig = sharded_run(label, path, pipe, stack, ids, dpsp,
+                                           SHARDED_HALO)
+            add_launches(out["sharded"], launches)
+            out["ms"][f"b {path}"] = ms_per_section(
+                label, lambda: pipe.restore_stack_sharded(
+                    stack, ids, dpsp, halo=SHARDED_HALO), len(ids))
+            if path == "packed_fused_tail":
+                packed_sig = sig
+        del pipe
+        torch.cuda.empty_cache()
+
+    with timer.phase("b card vs cpu"):
+        small = synth_stack(5, SMALL_SIZE, SMALL_SIZE, seed=0)
+        cpu_pipe = build_pipeline("cpu", f32)
+        cpu_mesh = make_mesh(n_data=2, n_space=2, devices=["cpu"] * 4)
+        want = cpu_pipe.restore_stack_sharded(small, [1, 3], cpu_mesh,
+                                              halo=SMALL_HALO)
+        label = (f"25b dp2xsp2 halo{SMALL_HALO} float32 {SMALL_SIZE}^2 "
+                 "card vs cpu")
+        enable_nan_checks(True)
+        try:
+            got, launches, _ = sharded_run(label, "cudnn", cpu_pipe, small,
+                                           [1, 3], dpsp, SMALL_HALO)
+        finally:
+            enable_nan_checks(False)
+        add_launches(out["sharded"], launches)
+        level_diff(label, got, want, [1, 3],
+                   ("interp", "fused", "warped", "stitch"))
+        flow_err = max(float(np.abs(got[i]["flow"] - want[i]["flow"]).max())
+                       for i in (1, 3))
+        say(f"{label} flow max_abs_err", flow_err)
+        assert flow_err <= 1e-3, flow_err
+
+    with timer.phase("d profile_trace"):
+        logdir = os.path.join(OUT, "trace25")
+        shutil.rmtree(logdir, ignore_errors=True)
+        with profile_trace(logdir):
+            cpu_pipe.restore_stack_sharded(small, [1, 3], dpsp, halo=SMALL_HALO)
+            torch.cuda.synchronize()
+        traces = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+        assert len(traces) == 1, traces
+        with open(os.path.join(logdir, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        say("25d profile_trace of (b)'s card call: events, kernel events",
+            (len(events), kernels))
+        assert kernels, "profile_trace recorded no kernel on the card"
+        del cpu_pipe
+
+    with timer.phase("c infer_tiled"):
+        pipe = build_pipeline(DEV, f32)
+        i = ids[0]
+        x3 = torch.from_numpy(np.stack([stack[i - 1], stack[i + 1], stack[i]],
+                                       -1)).to(card).float() / 255.0
+
+        def section(x):
+            interp, fused, warped, flow = pipe.section(x.permute(0, 3, 1, 2))
+            return torch.cat([torch.stack([interp, fused, warped], -1), flow],
+                             -1)
+
+        tiled = {}
+        for name, mesh in (("no mesh", None), ("2-device mesh", dp)):
+            n_tiles = -(-h // TILE) * -(-w // TILE)
+            batch = 4 if mesh is None else max(4, mesh.size)
+            calls = -(-n_tiles // batch) * (1 if mesh is None else 2)
+            label = f"25c infer_tiled {TILE}+{TILE_HALO} float32 {name}"
+            tiled[name], launches, _ = counted_run(
+                label, "cudnn", calls, "call", lambda: infer_tiled(
+                    section, x3, TILE, TILE_HALO, mesh=mesh))
+            add_launches(out["tiled"], launches)
+            assert tiled[name].shape == (h, w, 5)
+            assert bool(torch.isfinite(tiled[name]).all()), label
+            out["ms"][f"c {name}"] = ms_per_section(
+                label, lambda: infer_tiled(section, x3, TILE, TILE_HALO,
+                                           mesh=mesh), 1)
+        a, b = (torch.floor(t[..., :3].clamp(0, 1) * 255).to(torch.int16)
+                for t in tiled.values())
+        d = (a - b).abs()
+        say("25c infer_tiled mesh vs no mesh max_level_diff", int(d.max()))
+        say("25c infer_tiled mesh vs no mesh share of pixels that differ",
+            float((d > 0).float().mean()))
+        assert int(d.max()) <= MAX_LEVELS
+        full = infer_full(section, x3[None])
+        assert full.shape == (1, h, w, 5) and bool(torch.isfinite(full).all())
+        out["ms"]["c infer_full"] = ms_per_section(
+            "25c infer_full float32", lambda: infer_full(section, x3[None]), 1)
+        del pipe
+
+    with timer.phase("kernels at the slab shapes"):
+        # one slab of (b) at full width: half the canvas rows, two halos
+        canvas_rows = -(-(h + 2 * SHARDED_HALO) // 64) * 64
+        n, hs, ws = 1, canvas_rows // 2 + 2 * SHARDED_HALO, -(-w // 32) * 32
+        times = {}
+        sep = (n, 1, hs, ws, K, "bfloat16", "bfloat16")
+        times["sepconv"] = time_sepconv(*sep, gen)
+        say_timing(f"sepconv_fwd[restore_stack_sharded {n}x1x{hs}x{ws} bf16]",
+                   times["sepconv"])
+        tile_sep = (4, 1, 640, 640, K, "float32", "float32")
+        times["sepconv_tiled"] = time_sepconv(*tile_sep, gen)
+        say_timing("sepconv_fwd[infer_tiled 4x1x640^2 f32]",
+                   times["sepconv_tiled"])
+        for shape in ((n, hs, ws), (4, 640, 640)):
+            im, flow = warp_inputs(*shape, gen)
+            times[shape] = timing(
+                cuda_ms(lambda: serving_warp(im, flow), reps=20),
+                cuda_ms(lambda: spatial_transform(im, flow), reps=5), None,
+                (shape[0] * shape[1] * shape[2] * (4 + 8 + 4) / HBM_BYTES_PER_S
+                 * 1e3, "bytes"))
+            say_timing(f"warp_bilinear[{shape[0]}x{shape[1]}x{shape[2]}]",
+                       times[shape])
+        slabs = len(ids) * 2
+        err = {"conv3x3_fused": check_conv(n, hs, ws, 32, 32, "relu", None, gen),
+               "deconv2x_fused": check_deconv(n, hs // 2, ws // 2, 64, 32,
+                                              "relu", None, gen),
+               "pool2x": check_pool(n, hs, ws, 32, "max", gen)}
+        times.update(time_conv_rows([(n, hs, ws, 32, 32, None)], gen,
+                                    packed_sig.calls, slabs))
+        times.update(time_deconv_rows([(n, hs // 2, ws // 2, 64, 32, None)],
+                                      gen, packed_sig.calls, slabs))
+        x = randn((n, hs, ws, 32), gen)
+        times[f"pool2x[max@{n}x{hs}x{ws}]"] = timing(
+            cuda_ms(lambda: pool2x(x, "max"), 50, 3),
+            cuda_ms(lambda: pool2x_plain(x, "max"), 5),
+            cuda_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2), 50, 3),
+            roofline(2 * n * hs * ws * 32 * 5 // 4, n * hs * ws * 32,
+                     F32_FLOP_PER_S))
+        del x
+        times[f"head_tail[K{K}@{n}x{hs // 2}x{ws // 2}]"] = time_head_tail(
+            n, gen, packed_sig.maps, slabs, hs // 2, ws // 2)
+        for name in (f"pool2x[max@{n}x{hs}x{ws}]",
+                     f"head_tail[K{K}@{n}x{hs // 2}x{ws // 2}]"):
+            say_timing(name, times[name])
+    out.update(times=times, err=err, sep=sep, tile_sep=tile_sep,
+               warp=(n, hs, ws))
+    for name, t in timer.report().items():
+        say(f"25 StepTimer {name} total_s, mean_s", (t["total_s"], t["mean_s"]))
+    return out
+
+
+def sharded_kernel_entries(res, sep_err, warp_err, head_tail_err):
+    """JSON entries of phase 25: the kernels at the sharded restore's slab
+    shapes (1 x 1408 x 1280; the deconv and head tail on its half
+    resolution) and the sepconv and warp at the tiled restore's; launches
+    are each kernel's over phase 25's sharded runs, or its tiled runs."""
+    t = res["times"]
+    sharded, tiled = res["sharded"], res["tiled"]
+    n, hs, ws = res["warp"]
+    src = "sstem_tpu_torch/csrc/"
+    entries = [
+        ("sepconv_fwd", f"sepconv_fwd[restore_stack_sharded {n}x1x{hs}x{ws} "
+         "bf16]", "sepconv_fwd.cu", "sstem_tpu/kernels/sepconv.py:240",
+         sharded, sep_err[res["sep"]], t["sepconv"]),
+        ("warp_bilinear", f"warp_bilinear[restore_stack_sharded {n}x{hs}x{ws}]",
+         "warp_bilinear.cu", "sstem_tpu/kernels/warp_band.py:64", sharded,
+         warp_err[(n, hs, ws)], t[(n, hs, ws)]),
+        ("sepconv_fwd", "sepconv_fwd[infer_tiled 4x1x640^2 f32]",
+         "sepconv_fwd.cu", "sstem_tpu/kernels/sepconv.py:240", tiled,
+         sep_err[res["tile_sep"]], t["sepconv_tiled"]),
+        ("warp_bilinear", "warp_bilinear[infer_tiled 4x640x640]",
+         "warp_bilinear.cu", "sstem_tpu/kernels/warp_band.py:64", tiled,
+         warp_err[(4, 640, 640)], t[(4, 640, 640)]),
+    ]
+    for name, timed in t.items():
+        if not isinstance(name, str) or "[" not in name:
+            continue
+        kernel = name.split("[")[0]
+        source, replaces = {
+            "conv3x3_fused": ("conv3x3_fused.cu", "sstem_tpu/kernels/conv3x3.py:124"),
+            "deconv2x_fused": ("deconv2x_fused.cu", "sstem_tpu/kernels/deconv.py:63"),
+            "pool2x": ("pool2x.cu", "sstem_tpu/kernels/pool.py:45"),
+            "head_tail": ("head_tail.cu", "sstem_tpu/kernels/head_tail.py:174"),
+        }[kernel]
+        err = head_tail_err if kernel == "head_tail" else res["err"][kernel]
+        entries.append((kernel, f"{kernel}[restore_stack_sharded "
+                        f"{name.split('[')[1]}", source, replaces, sharded,
+                        err, timed))
+    return [{"name": name, "route": "cuda", "source": src + source,
+             "replaces": replaces, "launches": launches[kernel],
+             "max_abs_err": err, **timed}
+            for kernel, name, source, replaces, launches, err, timed in entries]
+
+
 SP_KERNELS = (
     # JSON name prefix, source, TPU kernel body, where its launches come from
     ("conv3x3_fused[probe", "sstem_tpu_torch/csrc/conv3x3_fused.cu",
@@ -3581,7 +3962,16 @@ def main():
         "replaces": "sstem_tpu/kernels/warp_band.py:64",
         "launches": tools24["unfolding_warps"], "max_abs_err": warp_err[preview],
         **times[preview]})
+    phase(f"25 the sharded stack restore (dp 2, dp 2 x sp 2, halo "
+          f"{SHARDED_HALO}) and tiled inference ({TILE}+{TILE_HALO}) on one "
+          "card's repeated mesh, the debug tools")
+    t25 = time.perf_counter()
+    sharded = sharded_phase(gen)
+    say("25 phase seconds", time.perf_counter() - t25)
+
     kernels += new_kernel_entries(packed)
+    kernels += sharded_kernel_entries(sharded, sep_err, warp_err,
+                                      packed["err"]["head_tail"])
     sp["err"]["sepconv_fwd[sp"] = sep_err[(SP_BATCH, 1, 1280, 1280, K,
                                            "bfloat16", "bfloat16")]
     sp["err"]["head_tail"] = packed["err"]["head_tail"]

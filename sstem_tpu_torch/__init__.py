@@ -16,7 +16,11 @@ same functions in PyTorch, with hand-written CUDA kernels for Hopper
               ``serving.py``, their fused-conv bf16 serving forwards
   compat/     JAX variables and reference checkpoints -> port state dicts;
               the reference's YAML configs
-  infer/      the SFF and SP restore pipelines and pad-to-stride
+  infer/      the SFF and SP restore pipelines (the SFF one also sharded over
+              a mesh), pad-to-stride, one-shot and tiled inference
+  parallel/   device meshes, batch sharding, replicas, row sharding with
+              halo exchange (one process; data moves as tensor copies)
+  utils/      debug tools: non-finite checks, profiler traces, step timers
   data/       synthetic ssTEM stacks and triplet trees, augmentations, the
               SFF fold degradation (host and batched on the device), the
               interp, unfolding and fusion datasets, the threaded provider

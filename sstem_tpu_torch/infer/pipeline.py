@@ -26,6 +26,7 @@ first conv pair-folded (exact on the replicated-gray input); the warp runs
 once, on the one degraded channel, and ``warped`` stays single-channel.
 """
 
+import copy
 import logging
 
 import numpy as np
@@ -337,6 +338,92 @@ class SFFPipeline:
                               "stitch": imgs[j, ..., 3]}
                 if want_flow:
                     results[i]["flow"] = flow[j]
+        return results
+
+    def _replica(self, device):
+        """This pipeline with its models copied to ``device`` (eval mode), so
+        that the packed path's prepared weights belong to the copies."""
+        pipe = copy.copy(self)
+        pipe.device = device
+        pipe.interp_model, pipe.flow_model, pipe.fusion_model = (
+            copy.deepcopy(m).to(device).eval()
+            for m in (self.interp_model, self.flow_model, self.fusion_model))
+        return pipe
+
+    @torch.inference_mode()
+    def restore_stack_sharded(self, stack, damaged_ids, mesh, halo=256,
+                              data_axis="data", space_axis="space"):
+        """Mesh restore (``parallel.make_mesh``): sections data-parallel over
+        ``data_axis``, each section's rows sharded over ``space_axis`` with
+        ``halo`` rows exchanged between neighbouring slabs
+        (``parallel.spatial_apply``). ``section`` runs on each slab, on a
+        copy of the three models for each distinct mesh device (this
+        pipeline's own on its device).
+
+        The results equal the section function on the zero-extended canvas,
+        cropped: the stack is padded with zeros to W % 32 == 0 and to a row
+        count that gives every slab, halos included, a multiple of 32 rows
+        (not ``restore_stack``'s edge pad). The JAX package's three accuracy
+        regimes follow (``sstem_tpu/infer/pipeline.py``,
+        ``restore_stack_sharded``): with ``n_space`` 1 and halo 0 the run is
+        the single-device one on that canvas; a halo that covers the
+        correction nets' receptive field (320 rows) makes the seams exact
+        to a uint8 level; the interp (IFNet reaches 1/32 scale, and its
+        align-corners upsampling is canvas-global) is approximate
+        everywhere under row sharding, less so as the halo grows. The last
+        group is filled by repeating its ids. TEST.pad is not supported.
+
+        Returns {id: {'interp', 'fused', 'warped', 'stitch', 'flow'}} with
+        numpy uint8 images and float32 flow.
+        """
+        from sstem_tpu_torch.parallel.mesh import canonical_device
+        from sstem_tpu_torch.parallel.spatial import spatial_apply
+
+        self._need("restore_stack_sharded", "interp_model", "flow_model",
+                   "fusion_model")
+        _check_interior(damaged_ids, len(stack))
+        if self.pad:
+            raise ValueError("restore_stack_sharded does not support "
+                             "TEST.pad != 0; use restore_stack")
+        if halo % 32:
+            raise ValueError("halo must be a multiple of 32")
+        n_dp, n_sp = mesh.shape[data_axis], mesh.shape[space_axis]
+        stack = np.asarray(stack)
+        _, h, w = stack.shape
+        wp = -(-w // 32) * 32
+        hp = -(-(h + 2 * halo) // (32 * n_sp)) * (32 * n_sp) - 2 * halo
+        home = canonical_device(self.device)
+        pipes = {d: self if d == home else self._replica(d)
+                 for d in mesh.distinct_devices()}
+
+        def section(xb):  # (N, rows, Wp, 3) on a mesh device -> (..., 5)
+            interp, fused, warped, flow = pipes[xb.device].section(
+                xb.permute(0, 3, 1, 2))
+            return torch.cat([torch.stack([interp, fused, warped], -1), flow],
+                             -1)
+
+        dev_stack = torch.from_numpy(stack).to(self.device)
+        ids = list(damaged_ids)
+        results = {}
+        for s in range(0, len(ids), n_dp):
+            grp = ids[s:s + n_dp]
+            if len(grp) < n_dp:
+                grp = (grp * n_dp)[:n_dp]
+            ix = torch.tensor(grp, device=self.device)
+            x3 = torch.stack([dev_stack[ix - 1], dev_stack[ix + 1],
+                              dev_stack[ix]], dim=-1).float() / 255.0
+            x3 = F.pad(x3, (0, 0, 0, wp - w, 0, hp - h))
+            out = spatial_apply(section, x3, mesh, halo, axis=space_axis,
+                                batch_axis=data_axis)[:, :h, :w]
+            i8, f8, w8 = (_level(out[..., k]) for k in range(3))
+            stitch = torch.where(w8 >= 2, w8, i8)
+            imgs = torch.stack([i8, f8, w8, stitch], -1).to(torch.uint8)
+            imgs, flow = imgs.cpu().numpy(), out[..., 3:5].cpu().numpy()
+            for j, i in enumerate(ids[s:s + n_dp]):
+                results[i] = {"interp": imgs[j, ..., 0],
+                              "fused": imgs[j, ..., 1],
+                              "warped": imgs[j, ..., 2],
+                              "stitch": imgs[j, ..., 3], "flow": flow[j]}
         return results
 
 

@@ -1,22 +1,32 @@
 """Shared weights for the port's parity tests (tests/test_torch_*.py).
 
 ``flax .init`` of the three SFF models costs about 35 s of XLA compilation on
-a CPU (the SP models likewise), so the tests take the variable tree from ``jax.eval_shape`` of
-``.init`` (a trace, no compile; about a second, so each tree is traced once
-per process) and fill it from a numpy seed. The same numpy arrays then go to
+a CPU (the SP models likewise), so the tests take the variable tree from the
+JAX package's importer of the port twin's state dict
+(``sstem_tpu.compat.torch_ckpt``; ``jax.eval_shape`` of ``.init``, a trace
+of about a second, for a model without a twin) and fill it from a numpy
+seed. The same numpy arrays then go to
 the flax model and, through ``sstem_tpu_torch.compat.weights``, to the port.
 
 The port's IFNet spends a second or two of its constructor on orthogonal
-init, which every test overwrites by loading weights; ``port_module`` builds
-each port class once per process and hands out copies.
+init; ``port_module`` builds each port class once per process and hands out
+copies, and with ``empty=True`` (for a caller that loads every value next,
+as ``port_sff_models`` and ``port_sp_models`` do) draws no initial values.
 """
 
+import contextlib
 import copy
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from sstem_tpu.compat.torch_ckpt import (
+    load_torch_fusionnet,
+    load_torch_ifnet,
+    load_torch_unet_sff,
+    load_torch_unet_sp,
+)
 from sstem_tpu.models import FusionNet, IFNet, UNetSFF, UNetSP
 from sstem_tpu_torch import models as port_models
 from sstem_tpu_torch.compat import (
@@ -27,8 +37,38 @@ from sstem_tpu_torch.compat import (
 )
 from sstem_tpu_torch.models.layers import skip_init
 
-_TREES = {}  # the traced shape tree by model, input shape and init kwargs
+_TREES = {}  # the variable tree by model, input shape and init kwargs
 _PORT = {}  # one constructed port module by class name and arguments
+
+# flax model class -> (its port twin built for it and an input shape, the
+# JAX package's importer of the twin's state dict)
+_TWINS = {
+    IFNet: (lambda m, shape: port_module("IFNet", m.kernel_size, m.n_frames,
+                                         empty=True),
+            lambda m, sd: load_torch_ifnet(sd, m.n_frames)),
+    FusionNet: (lambda m, shape: port_module("FusionNet", shape[-1],
+                                             m.output_nc, m.ngf, empty=True),
+                lambda m, sd: load_torch_fusionnet(sd)),
+    UNetSFF: (lambda m, shape: port_module("UNetSFF", shape[-1], m.out_channel,
+                                           empty=True),
+              lambda m, sd: load_torch_unet_sff(sd)),
+    UNetSP: (lambda m, shape: port_module("UNetSP", m.n_classes, empty=True),
+             lambda m, sd: load_torch_unet_sp(sd)),
+}
+
+
+def _variable_tree(model, shape, init_kw):
+    """The shapes of ``model.init``'s variables. For the four models with a
+    port twin, the JAX importer's tree of the twin's state dict: no trace,
+    the same paths in the same order (flax's ``apply`` rejects a tree that
+    misses a variable or changes a shape); else ``jax.eval_shape`` of
+    ``.init`` (a trace of about a second)."""
+    if type(model) in _TWINS:
+        build, load = _TWINS[type(model)]
+        return load(model, build(model, shape).state_dict())
+    return jax.eval_shape(
+        lambda k, x: model.init(k, x, **init_kw), jax.random.PRNGKey(0),
+        jnp.zeros(shape, jnp.float32))
 
 
 def numpy_variables(model, seed, shape=(1, 64, 64, 6), **init_kw):
@@ -40,9 +80,7 @@ def numpy_variables(model, seed, shape=(1, 64, 64, 6), **init_kw):
     """
     key = (repr(model), shape, tuple(sorted(init_kw.items())))
     if key not in _TREES:
-        _TREES[key] = jax.eval_shape(
-            lambda k, x: model.init(k, x, **init_kw), jax.random.PRNGKey(0),
-            jnp.zeros(shape, jnp.float32))
+        _TREES[key] = _variable_tree(model, shape, init_kw)
     tree = _TREES[key]
     rng = np.random.default_rng(seed)
 
@@ -109,22 +147,22 @@ def port_sp_models(kernel_size, variables):
             ("IFNet", (kernel_size, 2), ifnet_state_dict_from_jax(iv, 2)),
             ("UNetSP", (), unet_sp_state_dict_from_jax(dv)),
             ("FusionNetSP", (), unet_sp_state_dict_from_jax(fv))):
-        with skip_init():  # every value is loaded next
-            model = port_module(name, *args)
+        model = port_module(name, *args, empty=True)
         model.load_state_dict(sd, strict=True)
         out.append(model.eval())
     return tuple(out)
 
 
-def port_module(name, *args):
+def port_module(name, *args, empty=False):
     """A fresh port module (``IFNet``, ``FusionNet``, ``UNetSFF``, ``UNetSP``
     or ``FusionNetSP`` with ``args``), copied from one constructed per
-    process: its initial weights are those of a default generator (none for
-    the SP models, which ``port_sp_models`` builds under ``skip_init``), for
-    the caller to overwrite."""
-    key = (name, args)
+    process: its initial weights are those of a default generator, or, with
+    ``empty``, none (built under ``skip_init``, for a caller that loads a
+    full state dict strictly next)."""
+    key = (name, args, empty)
     if key not in _PORT:
-        _PORT[key] = getattr(port_models, name)(*args)
+        with skip_init() if empty else contextlib.nullcontext():
+            _PORT[key] = getattr(port_models, name)(*args)
     return copy.deepcopy(_PORT[key])
 
 
@@ -137,7 +175,7 @@ def port_sff_models(kernel_size, variables):
             ("IFNet", (kernel_size,), ifnet_state_dict_from_jax, iv),
             ("FusionNet", (), fusionnet_state_dict_from_jax, fv),
             ("UNetSFF", (), unet_sff_state_dict_from_jax, uv)):
-        model = port_module(name, *args)
+        model = port_module(name, *args, empty=True)
         model.load_state_dict(to_sd(v), strict=True)
         out.append(model.eval())
     return tuple(out)
