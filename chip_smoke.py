@@ -148,6 +148,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      around one call, its trace read back; the phase's ``StepTimer``
      report; then every kernel of the sharded path at its slab shape
      beside its plain version, library call and bound
+ 26. data-parallel SFF training on DDP, every rank on cuda:0 under gloo
+     (NCCL cannot run two ranks on one card; the card's machine has one):
+     (a) ``train_interp.build`` at phase 10's workload (IFNet K=51, a
+     global batch of 32 x 256^2 from the seed, float32, TF32 off, L1) on
+     2 ranks x 16 rows against the one-process step on the same card: the
+     ReLU inputs of each rank's rows against the one-process forward
+     (flips only within the two forwards' rounding), step 1's averaged
+     gradient against the one-process gradient of the global batch taken
+     in two 16-row halves (DDP_GRAD_BOUND) and in one 32-row pass
+     (DDP_KINK_GRAD_BOUND), the ranks' parameters bitwise equal after 3
+     steps, sepconv forward 2 and backward 2 a step a rank, both timed
+     (the ranks share the card: no scaling figure); (b) in the same group,
+     ``train_unfolding.main`` and ``train_fusion.main`` with
+     --device-datagen (raw crops, one provider thread) at
+     bench.py:394-399's workload, 4 rows a rank, against the one-process
+     mains: loss.txt (DDP_LOSS_RTOL), checkpoint keys, a warp a fusion
+     step a rank; (c) a DDP step under NCCL at world 1 against the plain
+     step (NCCL_GRAD_BOUND), while (d) ``dryrun.dryrun_multichip(2)`` and
+     ``dryrun.entry()`` run; then the sepconv kernels at a rank's
+     signature and the warp at a rank's fusion step beside their plain
+     versions and bounds
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -156,6 +177,8 @@ script imports nothing of JAX. What it writes goes under ``build/chip_smoke/``
 in the checkout.
 """
 
+import contextlib
+import functools
 import importlib.util
 import json
 import os
@@ -277,14 +300,15 @@ def check_warp(im, flow, label):
 def warp_inputs(n, h, w, gen):
     """A unit-range image and a flow at one WARP_CHECKS shape: the fusion
     step's flows from degrade_sff_batch on seeded 400^2 crops (line width
-    5..20, as the fusion trainer draws them), random +-20 px at the odd
-    size, fold flows (ops.flow.fold_flows) elsewhere."""
+    5..20, as the fusion trainer draws them; a data-parallel rank's batch
+    too), random +-20 px at the odd size, fold flows (ops.flow.fold_flows)
+    elsewhere."""
     from sstem_tpu_torch.data import synth_stack
     from sstem_tpu_torch.data.sim_sff import degrade_sff_batch, step_generator
     from sstem_tpu_torch.ops.flow import fold_flows
 
     im = rand((n, h, w, 1), gen)
-    if (n, h, w) == (SFF_TRAIN_BATCH, SFF_TRAIN_DET, SFF_TRAIN_DET):
+    if (h, w) == (SFF_TRAIN_DET, SFF_TRAIN_DET) and n > 1:
         crops = torch.from_numpy(synth_stack(n, SFF_TRAIN_CROP, SFF_TRAIN_CROP,
                                              seed=SEED)).cuda()
         _, flow = degrade_sff_batch(crops, step_generator(SEED, 1, "cuda"),
@@ -408,6 +432,15 @@ ODD_DECONV_CHECKS = (
 SFF_TRAIN_BATCH, SFF_TRAIN_CROP, SFF_TRAIN_DET = 8, 400, 256
 TRAININGSET_ROWS, TRAININGSET_SIZE, TRAININGSET_BS = 16, 512, 4
 
+# Data-parallel training (phase 26): two ranks on the one card, each taking
+# its half of the interp trainer's batch (TRAIN_BATCH x TRAIN_PATCH^2) and of
+# the correction and fusion trainers' (SFF_TRAIN_BATCH); a rank's sepconv
+# signature, forward and backward, and its fusion step's warp shape.
+DDP_WORLD = 2
+DDP_INTERP_SIG = (TRAIN_BATCH // DDP_WORLD, 1, TRAIN_PATCH, TRAIN_PATCH, K,
+                  "float32", "float32")
+DDP_WARP = (SFF_TRAIN_BATCH // DDP_WORLD, SFF_TRAIN_DET, SFF_TRAIN_DET)
+
 # The SP trainers' workload: the JAX trainers' defaults (patch_size or 256,
 # batch_size or 1, kernel_size or 51, base_lr or 1e-4; the reference's SP
 # YAMLs are not in the repo) over a seeded quartet tree of
@@ -428,12 +461,13 @@ SP_TRAIN_SIG = (SP_TRAIN_BATCH, 1, SP_TRAIN_PATCH, SP_TRAIN_PATCH, K,
 # 1280^2 canvas); the sharded restore's slabs (phase 25: 1408 x 1280, 320
 # x 256) and the tiled restore's tiles (4 or 2 of 640^2); then an odd size.
 # Phase 4 holds the kernel against its plain version at each;
-# phases 21, 22 and 25 fail on a launched shape missing here, and
-# tests/test_torch_conv_shapes.py on the fusion step's and the CLI's.
+# phases 21, 22, 25 and 26 fail on a launched shape missing here, and
+# tests/test_torch_conv_shapes.py on the fusion step's and the CLI's. A
+# data-parallel rank's fusion step warps DDP_WARP.
 WARP_CHECKS = ((4, 1280, 1280), (SFF_TRAIN_BATCH, SFF_TRAIN_DET, SFF_TRAIN_DET),
                (1, SFF_TRAIN_DET, SFF_TRAIN_DET), (1, 1250, 1250),
                (1, 1280, 1280), (1, 1408, 1280), (1, 320, 256), (4, 640, 640),
-               (2, 640, 640), (2, 250, 333))
+               (2, 640, 640), DDP_WARP, (2, 250, 333))
 
 # The sepconv forward's signatures (n, c, h, w, k, image dtype, maps dtype)
 # and the head tail's (n, hi, wi, cx, k) that the paths launch at full
@@ -445,18 +479,21 @@ WARP_CHECKS = ((4, 1280, 1280), (SFF_TRAIN_BATCH, SFF_TRAIN_DET, SFF_TRAIN_DET),
 # micro_bench; the SP trainers (phase 23); the sharded restore's slabs
 # (phase 25: 1280^2 data-parallel, 1408 x 1280 with the 256-row halos of
 # the 1250^2 dp x sp run, 320 x 256 at its card-vs-CPU size) and the tiled
-# restore's 640^2 tiles, 4 a call (2 on each device of a 2-device mesh).
+# restore's 640^2 tiles, 4 a call (2 on each device of a 2-device mesh);
+# a data-parallel rank's training step (phase 26: 16 x 256^2).
 # Then the remaining dtype
 # pair, K = 5 and 11, and odd sizes and channel counts that take the first
 # designs (sepconv W % 4 != 0; head tail Cx % 8 != 0) or the edges of the
 # new ones. Phases 3, 11 and 12 hold both designs against the plain version
-# at each; phases 6, 10, 14, 18, 19a and 25 fail on a launched signature
-# missing here, and tests/test_torch_conv_shapes.py on a packed path's.
+# at each; phases 6, 10, 14, 18, 19a, 25 and 26 fail on a launched
+# signature missing here, and tests/test_torch_conv_shapes.py on a packed
+# path's.
 SEPCONV_CHECKS = (
     (4, 1, 1280, 1280, K, "bfloat16", "bfloat16"),
     (4, 1, 1280, 1280, K, "float32", "float32"),
     (2, 1, 1280, 1280, K, "bfloat16", "bfloat16"),
     (32, 1, 256, 256, K, "float32", "float32"),
+    DDP_INTERP_SIG,
     SP_TRAIN_SIG,
     (1, 1, 1280, 1280, K, "float32", "float32"),
     (TRAININGSET_BS, 1, TRAININGSET_SIZE, TRAININGSET_SIZE, K, "float32",
@@ -483,16 +520,18 @@ HEAD_TAIL_CHECKS = (
     (2, 37, 53, K, K), (2, 37, 53, 64, K),
 )
 # The sepconv backward's signatures, as SEPCONV_CHECKS writes them: the
-# interp training step's and the SP trainers' (the two a path launches;
-# phase 11 holds the first, phase 8 the rest), then rows for the simple
-# design (W % 4 != 0), more channels than one block's shared memory holds,
-# bf16 maps and image, and C > 1 at odd H on the blocked design. Phases 8
-# and 11 hold both designs against the plain version at each; phases 10
-# and 23 fail on a launched signature missing here, and
+# interp training step's, the SP trainers' and a data-parallel rank's (the
+# three a path launches; phase 11 holds the first, phase 8 the rest), then
+# rows for the simple design (W % 4 != 0), more channels than one block's
+# shared memory holds, bf16 maps and image, and C > 1 at odd H on the
+# blocked design. Phases 8 and 11 hold both designs against the plain
+# version at each; phases 10, 23 and 26 fail on a launched signature
+# missing here, and
 # tests/test_torch_conv_shapes.py on the training steps'.
 SEPCONV_BWD_CHECKS = (
     (32, 1, 256, 256, K, "float32", "float32"),
     SP_TRAIN_SIG,
+    DDP_INTERP_SIG,
     (2, 3, 61, 47, 11, "float32", "float32"),
     (1, 13, 40, 40, K, "float32", "float32"),
     (2, 1, 64, 96, 5, "float32", "bfloat16"),
@@ -895,15 +934,21 @@ def profile_steps(train_step, state, batch, steps=2, label="train"):
     profile_runs(label, step, steps, 1, "step", f"{label}_profile.json")
 
 
-def device_work(prof, trace_name):
+def device_events(prof, trace_name):
     """The device's work (kernels, copies, memsets) in a finished
-    torch.profiler run, from its trace exported under ``OUT``."""
+    torch.profiler run, from its trace exported under ``OUT``; may be
+    empty."""
     os.makedirs(OUT, exist_ok=True)
     trace = os.path.join(OUT, trace_name)
     prof.export_chrome_trace(trace)
     with open(trace) as f:
-        work = [e for e in json.load(f)["traceEvents"]
+        return [e for e in json.load(f)["traceEvents"]
                 if e.get("ph") == "X" and e.get("cat") in DEVICE_WORK]
+
+
+def device_work(prof, trace_name):
+    """``device_events``, failing when the trace holds none."""
+    work = device_events(prof, trace_name)
     assert work, "the trace holds no device work"
     return work
 
@@ -1112,20 +1157,35 @@ def host_us(fn, reps=200, warmup=20):
     return seconds * 1e6 / reps
 
 
-def device_us(fn, trace_name, reps=200, warmup=5):
+def device_us(fn, trace_name, reps=200, warmup=5, tries=3):
     """Device microseconds per call of ``fn`` by kind (``PROBE_KINDS``),
-    from torch.profiler over ``reps`` calls: {kind: us per call}."""
+    from torch.profiler over ``reps`` calls: {kind: us per call}.
+
+    These sessions last a few milliseconds, and late in a full run the
+    trace of one has come back without a single device event while the
+    calls ran on the card (the profiler dropped them, in about half of the
+    runs through phase 19). A trace without device work is profiled
+    again, up to ``tries`` sessions in all, each retry printed; the last
+    must hold device work."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        work = device_events(prof, trace_name)
+        if work:
+            break
+        say(f"device_us {trace_name}: session {attempt} of {tries} held no "
+            "device work", "profiled again" if attempt < tries else "failing")
+    assert work, "the trace holds no device work"
     kinds = {}
-    for e in device_work(prof, trace_name):
+    for e in work:
         name = e["name"].lower()
         kind = next((k for frag, k in PROBE_KINDS if frag in name), "other")
         kinds[kind] = kinds.get(kind, 0.0) + e["dur"] / reps
@@ -3571,6 +3631,439 @@ def sharded_phase(gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: data-parallel SFF training on DDP (ranks on the one card)
+# ---------------------------------------------------------------------------
+
+# Bounds fixed before the first card reading: a rank's averaged gradient
+# against the one-process step's on the global batch (of each tensor's
+# max, phase 9's bound), the DDP mains' loss.txt against the one-process
+# mains' (relative), and the NCCL world-1 step against the plain step (of
+# each tensor's max). Every rank runs on cuda:0 under gloo: NCCL cannot
+# run two ranks on one card.
+DDP_GRAD_BOUND, DDP_LOSS_RTOL, NCCL_GRAD_BOUND = 1e-4, 1e-4, 1e-6
+DDP_STEPS, DDP_TREE_ROWS, DDP_TIMEOUT_S = 3, 8, 300
+# The ReLU guard (ROADMAP §3, "ReLU kinks"): cuDNN picks other float32
+# algorithms for 16 rows than for 32, so the two forwards round apart and a
+# ReLU input within that rounding of 0 can take the other side (91 of
+# rank 0's inputs in the first card run). The guard holds the two forwards
+# within DDP_RELU_REL_DIFF of each input's max |value| and allows a flip
+# only where the input lies within the forwards' own difference of 0.
+DDP_RELU_REL_DIFF = 1e-4
+# Against the one-process gradient of one 32-row pass such flips move a
+# gradient by up to the kinks' scale (ROADMAP §3: 2e-3 of a tensor's max);
+# DDP_GRAD_BOUND holds against the same gradient taken in two 16-row
+# halves, whose forwards are the ranks'.
+DDP_KINK_GRAD_BOUND = 2e-3
+
+
+def relu_sign_check(model, x, rows, rank, world):
+    """This rank's forward of ``model`` on its ``rows`` against its rows of
+    the forward on the global batch ``x``, ReLU input by ReLU input: the
+    inputs of another sign, those of them farther from 0 than the two
+    forwards' largest difference on that input (a flip that rounding
+    cannot explain), and that difference's largest ratio to the input's
+    max |value| over the layers."""
+    from sstem_tpu_torch.parallel import ddp
+
+    want = []
+    out = {"flips": 0, "beyond_rounding": 0, "worst_rel_diff": 0.0}
+
+    def keep(m, i, o):
+        want.append(ddp.rank_rows(i[0], rank, world).clone())
+
+    def compare(m, i, o):
+        a, b = i[0], want.pop(0)
+        d = (a - b).abs().max()
+        flip = (a > 0) != (b > 0)
+        out["flips"] += int(flip.sum())
+        out["beyond_rounding"] += int((flip & (b.abs() > d)).sum())
+        out["worst_rel_diff"] = max(out["worst_rel_diff"], float(
+            d / b.abs().max().clamp_min(1e-30)))
+
+    for hook, inputs in ((keep, x), (compare, rows)):
+        handles = [m.register_forward_hook(hook) for m in model.modules()
+                   if isinstance(m, torch.nn.ReLU)]
+        try:
+            with torch.no_grad():
+                model(inputs)
+        finally:
+            for h in handles:
+                h.remove()
+    assert not want
+    return out
+
+
+def ddp_interp_rank(rank, world, device, cfg_path, ref_path, timed=10):
+    """Phase 26a on one rank: ``train_interp.build`` under the group (IFNet
+    in DDP) on this rank's rows of the reference's global batch. The ReLU
+    sign check against the one-process forward of the whole batch, then
+    DDP_STEPS steps with every kernel's count from 0 and the signatures
+    recorded, step 1's averaged gradient against the one-process
+    gradients of the same global batch (in two accumulated halves, and
+    whole; the worst error over the tensors, of each tensor's max), the
+    parameters after the steps against rank 0's (bitwise), then ``timed``
+    steps on the host clock (the DDP_STEPS steps warm them)."""
+    import torch.distributed as dist
+
+    from sstem_tpu_torch import config
+    from sstem_tpu_torch.cli import train_interp
+    from sstem_tpu_torch.compat.config import load_sff_config
+    from sstem_tpu_torch.parallel import ddp
+    from sstem_tpu_torch.train.trainer import TrainState
+
+    config.disable_tf32()
+    ref = torch.load(ref_path, map_location=device, weights_only=True)
+    model, opt, step, _, _, _ = train_interp.build(load_sff_config(cfg_path),
+                                                   device, seed=SEED)
+    bare = ddp.unwrap(model)
+    rows = ddp.rank_rows((ref["x"], ref["y"]), rank, world)
+    out = {"relu": relu_sign_check(bare, ref["x"], rows[0], rank, world)}
+    wrappers = counted_kernels()
+    for fn in wrappers.values():
+        fn.launches = 0
+    state = TrainState(model, opt)
+    with KernelSignatures() as sig:
+        state, metrics = step(state, rows)
+        for key in ("halves", "whole"):
+            worst = (0.0, "")
+            for name, p in bare.named_parameters():
+                want = ref[key][name]
+                err = float((p.grad - want).abs().max()
+                            / want.abs().max().clamp_min(1e-30))
+                worst = max(worst, (err, name))
+            out[f"worst_grad_{key}"] = worst
+        out["loss"] = float(metrics["loss"])
+        for _ in range(DDP_STEPS - 1):
+            state, _ = step(state, rows)
+        torch.cuda.synchronize()
+    out.update(maps=dict(sig.maps),
+               launches={k: f.launches for k, f in wrappers.items()})
+    flat = torch.cat([p.detach().flatten() for p in bare.parameters()])
+    lead = flat.clone()
+    dist.broadcast(lead, 0)
+    out["equal"] = torch.equal(lead, flat)
+    del ref, flat, lead
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, rows)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out.update(ms=times, peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def interp_reference(root, timed=10):
+    """Phase 26a's one-process side: the config, and in ``root`` the seeded
+    global batch (TRAIN_BATCH x TRAIN_PATCH^2) with the one-process
+    gradients of ``train_interp.build``'s net on it, taken twice: in two
+    accumulated halves of 16 rows, which run the ranks' cuDNN algorithms
+    (every ReLU input takes the rank's side), and whole, whose 32-row
+    algorithms round apart and flip ReLU inputs within that rounding of 0
+    (relu_sign_check). Then the one-process step itself (its loss) and
+    its time: median of ``timed`` after DDP_STEPS warm steps. Returns
+    (config path, reference path, loss, ms per step)."""
+    from sstem_tpu_torch.cli import train_interp
+    from sstem_tpu_torch.compat.config import load_sff_config
+    from sstem_tpu_torch.train.trainer import TrainState
+
+    cfg_path = write_interp_config(root, os.path.join(root, "unused"))
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.rand(TRAIN_BATCH, 6, TRAIN_PATCH, TRAIN_PATCH, generator=g)
+    y = torch.rand(TRAIN_BATCH, 1, TRAIN_PATCH, TRAIN_PATCH, generator=g)
+    model, opt, step, _, _, criterion = train_interp.build(
+        load_sff_config(cfg_path), DEV, seed=SEED)
+    batch = (x.to(DEV), y.to(DEV))
+    ref = {"x": x, "y": y}
+    for key, parts in (("halves", DDP_WORLD), ("whole", 1)):
+        model.zero_grad(set_to_none=True)
+        for xp, yp in zip(*(t.chunk(parts) for t in batch)):
+            (criterion(model(xp), yp) / parts).backward()
+        ref[key] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    ref_path = os.path.join(root, "interp_ref.pt")
+    torch.save(ref, ref_path)
+    state = TrainState(model, opt)
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    times = []
+    for i in range(DDP_STEPS - 1 + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        if i >= DDP_STEPS - 1:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return cfg_path, ref_path, loss, times
+
+
+def check_interp_ranks(ranks, one_loss, one_ms):
+    """Phase 26a's checks on the ranks' results; prints the ms/step of DDP
+    beside the one process's. Returns the ranks' sepconv launches (summed)
+    for the JSON line."""
+    label = f"26a ddp train_interp {DDP_WORLD}x{TRAIN_BATCH // DDP_WORLD}"
+    launches = {"sepconv_fwd": 0, "sepconv_bwd": 0}
+    for rank, r in enumerate(ranks):
+        relu = r["relu"]
+        say(f"{label} rank {rank} ReLU inputs of another sign than the "
+            "one-process forward's: all, beyond the two forwards' "
+            "difference", [relu["flips"], relu["beyond_rounding"]])
+        say(f"{label} rank {rank} ReLU inputs' largest difference / their "
+            "max |value|", relu["worst_rel_diff"])
+        assert relu["beyond_rounding"] == 0, (rank, relu)
+        assert relu["worst_rel_diff"] <= DDP_RELU_REL_DIFF, (rank, relu)
+        say(f"{label} rank {rank} step-1 worst grad err / max|grad| vs one "
+            "process in two 16-row halves", r["worst_grad_halves"])
+        assert r["worst_grad_halves"][0] <= DDP_GRAD_BOUND, (rank, r)
+        say(f"{label} rank {rank} step-1 worst grad err / max|grad| vs one "
+            "process in one 32-row pass", r["worst_grad_whole"])
+        assert r["worst_grad_whole"][0] <= DDP_KINK_GRAD_BOUND, (rank, r)
+        say(f"{label} rank {rank} step-1 loss (mean over ranks) vs one "
+            "process", [r["loss"], one_loss])
+        assert abs(r["loss"] - one_loss) <= 1e-5 * abs(one_loss), rank
+        say(f"{label} rank {rank} parameters after {DDP_STEPS} steps equal "
+            "rank 0's", r["equal"])
+        assert r["equal"], rank
+        fired = {k: n for k, n in r["launches"].items() if n}
+        say(f"{label} rank {rank} launches in {DDP_STEPS} steps", fired)
+        assert fired == {"sepconv_fwd": 2 * DDP_STEPS,
+                         "sepconv_bwd": 2 * DDP_STEPS}, (rank, fired)
+        assert set(r["maps"]) == {("sepconv", *DDP_INTERP_SIG),
+                                  ("sepconv_bwd", *DDP_INTERP_SIG)}, r["maps"]
+        assert set(r["maps"]) <= MAP_CHECKS
+        for k in launches:
+            launches[k] += fired[k]
+        say(f"{label} rank {rank} peak_memory_GiB", r["peak_GiB"])
+    ms_ddp, ms_one = statistics.median(ranks[0]["ms"]), statistics.median(one_ms)
+    timed = len(one_ms)
+    say(f"{label} ms_per_step (median of {timed} after {DDP_STEPS} warm; both "
+        "ranks share the card)", ms_ddp)
+    say(f"{label} ms_per_step runs", ranks[0]["ms"])
+    say(f"26a one-process train_interp {TRAIN_BATCH} ms_per_step (median of "
+        f"{timed} after {DDP_STEPS} warm)", ms_one)
+    say("26a one-process train_interp ms_per_step runs", one_ms)
+    say("26a ddp / one-process ms_per_step", ms_ddp / ms_one)
+    return launches
+
+
+@contextlib.contextmanager
+def raw_crops_one_thread():
+    """The trainers' --device-datagen path as a process group runs it: raw
+    crops from the host (no pool) with one provider thread, so that a
+    one-process run draws the global batches that the ranks split."""
+    from sstem_tpu_torch.cli import train_unfolding
+    from sstem_tpu_torch.data import providers
+
+    saved = train_unfolding.Provider, providers.RawCropPairDataset.load_pool
+    train_unfolding.Provider = functools.partial(providers.Provider,
+                                                 num_threads=1)
+    providers.RawCropPairDataset.load_pool = lambda self, max_bytes=0: None
+    try:
+        yield
+    finally:
+        train_unfolding.Provider, providers.RawCropPairDataset.load_pool = saved
+
+
+def ddp_mains_rank(rank, world, device, cfg_u, cfg_f):
+    """Phase 26b on one rank: ``train_unfolding.main`` then
+    ``train_fusion.main`` with --device-datagen under the group (one
+    provider thread), each with every kernel's count from 0 and the
+    signatures recorded."""
+    from sstem_tpu_torch.cli import train_fusion, train_unfolding
+    from sstem_tpu_torch.data import providers
+
+    train_unfolding.Provider = functools.partial(providers.Provider,
+                                                 num_threads=1)
+    wrappers = counted_kernels()
+    out = {}
+    for name, main, cfg in (("unfolding", train_unfolding.main, cfg_u),
+                            ("fusion", train_fusion.main, cfg_f)):
+        for fn in wrappers.values():
+            fn.launches = 0
+        with KernelSignatures() as sig:
+            paths = main(["-c", cfg, "--max-iters", str(DDP_STEPS),
+                          "--device-datagen", "--device", device.type])
+            torch.cuda.synchronize()
+        out[name] = {"paths": paths, "warps": dict(sig.warps),
+                     "launches": {k: f.launches for k, f in wrappers.items()
+                                  if f.launches}}
+    return out
+
+
+def loss_lines(paths):
+    with open(os.path.join(paths["cache_path"], "loss.txt")) as f:
+        lines = f.read().splitlines()
+    return [float(ln.split("loss = ")[1].split()[0]) for ln in lines]
+
+
+def mains_reference(root):
+    """Phase 26b's one-process side: a seeded tree of DDP_TREE_ROWS
+    triplets of TRAININGSET_SIZE^2 (the clean middle sections stand in for
+    interp images), the configs at bench.py:394-399's workload (a loss
+    line a step), and ``train_unfolding.main`` then ``train_fusion.main``
+    (behind that unfolding run's checkpoint) with --device-datagen, on
+    raw crops with one provider thread. Returns (the DDP runs' config
+    paths, the one-process runs' paths)."""
+    from sstem_tpu_torch.cli import train_fusion, train_unfolding
+    from sstem_tpu_torch.data import write_triplet_tree
+
+    data = os.path.join(root, "data")
+    rows = write_triplet_tree(data, n_triplets=DDP_TREE_ROWS,
+                              size=TRAININGSET_SIZE, seed=SEED)
+    with open(os.path.join(data, "interp_train_data.txt"), "w") as f:
+        f.write("\n".join(r.split()[1] for r in rows) + "\n")
+    every = {"display_freq": 1}
+    cfg = {name: write_sff_train_config(root, data, name, every)
+           for name in ("unfold_one", "unfold_ddp")}
+    argv = ["--max-iters", str(DDP_STEPS), "--device-datagen", "--device",
+            torch.device(DEV).type]
+    with raw_crops_one_thread():
+        one_u = train_unfolding.main(["-c", cfg["unfold_one"]] + argv)
+        fusion = {**every, "output_nc": 1, "flownet_path": one_u["save_path"],
+                  "flownet_id": "model-%06d.ckpt" % DDP_STEPS}
+        for name in ("fusion_one", "fusion_ddp"):
+            cfg[name] = write_sff_train_config(root, data, name, fusion)
+        one_f = train_fusion.main(["-c", cfg["fusion_one"]] + argv)
+    return (cfg["unfold_ddp"], cfg["fusion_ddp"]), {"unfolding": one_u,
+                                                    "fusion": one_f}
+
+
+def check_mains_ranks(ranks, one):
+    """Phase 26b's checks: rank 0's loss.txt against the one-process run's
+    within DDP_LOSS_RTOL, the checkpoints' keys equal, one run directory, a
+    warp a fusion step a rank at DDP_WARP. Returns the ranks' warp
+    launches (summed) for the JSON line."""
+    warps = 0
+    for name in ("unfolding", "fusion"):
+        label = f"26b ddp train_{name} {DDP_WORLD}x{SFF_TRAIN_BATCH // DDP_WORLD}"
+        paths = ranks[0][name]["paths"]
+        assert ranks[1][name]["paths"] == paths
+        got, want = loss_lines(paths), loss_lines(one[name])
+        say(f"{label} rank 0 loss.txt vs one process", [got, want])
+        assert len(got) == len(want) == DDP_STEPS, (got, want)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        say(f"{label} loss.txt worst relative difference", rel)
+        assert rel <= DDP_LOSS_RTOL, (name, rel)
+        keys = [list(torch.load(os.path.join(p["save_path"], "model-%06d.ckpt"
+                                             % DDP_STEPS), map_location="cpu",
+                                weights_only=True)["model_weights"])
+                for p in (paths, one[name])]
+        assert keys[0] == keys[1], name
+        say(f"{label} checkpoint keys equal the one-process run's "
+            "(no module. prefix)", len(keys[0]))
+        for rank, r in enumerate(ranks):
+            run = r[name]
+            say(f"{label} rank {rank} launches", run["launches"])
+            if name == "fusion":
+                assert run["launches"] == {"warp_bilinear": DDP_STEPS}, run
+                assert run["warps"] == {DDP_WARP: DDP_STEPS}, run["warps"]
+                warps += DDP_STEPS
+            else:
+                assert run["launches"] == {} and not run["warps"], run
+    return warps
+
+
+def ddp_rank(rank, world, device, interp, mains):
+    """Phase 26a and 26b on one rank of one group."""
+    out = {"interp": ddp_interp_rank(rank, world, device, *interp)}
+    torch.cuda.empty_cache()
+    out["mains"] = ddp_mains_rank(rank, world, device, *mains)
+    return out
+
+
+def nccl_rank(rank, world, device, batch, hw):
+    """Phase 26c: one train_interp step (IFNet K=51, L1) of the net in DDP
+    under NCCL at world 1 against the same step of a bare copy. Returns
+    the backend, both losses and the worst gradient error (of each
+    tensor's max)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from sstem_tpu_torch import config
+    from sstem_tpu_torch.cli import _sff, train_interp
+    from sstem_tpu_torch.dryrun import dryrun_config
+    from sstem_tpu_torch.train.trainer import TrainState, make_optimizer
+
+    config.disable_tf32()
+    cfg = dryrun_config(batch)
+    cfg.TRAIN["kernel_size"] = K
+    bare, opt, step, _, sched, _ = train_interp.build(cfg, device, seed=SEED,
+                                                      data_parallel=False)
+    twin = copy.deepcopy(bare)
+    wrapped = _sff.data_parallel(twin, batch, device)
+    g = torch.Generator().manual_seed(SEED)
+    xy = (torch.rand(batch, 6, hw, hw, generator=g).to(device),
+          torch.rand(batch, 1, hw, hw, generator=g).to(device))
+    losses = []
+    for model, o in ((wrapped, make_optimizer(twin.parameters(), sched)),
+                     (bare, opt)):
+        _, metrics = step(TrainState(model, o), xy)
+        losses.append(float(metrics["loss"]))
+    twins = dict(twin.named_parameters())
+    worst = max((float((twins[k].grad - p.grad).abs().max()
+                       / p.grad.abs().max().clamp_min(1e-30)), k)
+                for k, p in bare.named_parameters())
+    return {"backend": dist.get_backend(), "type": type(wrapped).__name__,
+            "losses": losses, "worst": worst}
+
+
+def ddp_phase(gen):
+    """Phase 26: data-parallel SFF training on DDP, every rank on cuda:0
+    under gloo (the card's machine has one card). (a) and (b) in one
+    2-rank group: the interp trainer at full width against the one-process
+    step, and the correction and fusion trainers' mains against the
+    one-process mains. Then (c) a DDP step under NCCL at world 1 against
+    the plain step, in a group of its own while (d) dryrun_multichip(2)
+    and dryrun.entry() run (neither is timed). Returns the launches for
+    the JSON line."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sstem_tpu_torch import dryrun
+    from sstem_tpu_torch.parallel import launch
+
+    root = os.path.join(OUT, "ddp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+    t0 = time.perf_counter()
+    cfg_path, ref_path, one_loss, one_ms = interp_reference(root)
+    torch.cuda.empty_cache()
+    mains_cfgs, one_mains = mains_reference(root)
+    torch.cuda.empty_cache()
+    say("26a-b one-process side seconds", time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    ranks = launch.spawn(ddp_rank, DDP_WORLD, (cfg_path, ref_path),
+                         mains_cfgs, device=DEV, backend="gloo",
+                         timeout_s=DDP_TIMEOUT_S)
+    say("26a-b ranks seconds", time.perf_counter() - t1)
+    out["interp"] = check_interp_ranks([r["interp"] for r in ranks], one_loss,
+                                       one_ms)
+    out["fusion_warps"] = check_mains_ranks([r["mains"] for r in ranks],
+                                            one_mains)
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        nccl = pool.submit(launch.spawn, nccl_rank, 1, 2, 64, device=DEV,
+                           backend="nccl", timeout_s=DDP_TIMEOUT_S)
+        loss = dryrun.dryrun_multichip(DDP_WORLD, device=DEV)
+        say("26d dryrun_multichip(2) loss", loss)
+        fn, args = dryrun.entry(device=DEV)
+        y = fn(*args)
+        torch.cuda.synchronize()
+        say("26d entry() output shape, finite",
+            [tuple(y.shape), bool(torch.isfinite(y).all())])
+        assert y.shape == (1, 1, 256, 256) and bool(torch.isfinite(y).all())
+        (r,) = nccl.result()
+    say("26c backend, wrapper", [r["backend"], r["type"]])
+    assert r["backend"] == "nccl" and r["type"] == "DistributedDataParallel"
+    say("26c DDP step vs plain step losses", r["losses"])
+    say("26c DDP step vs plain step worst grad err / max|grad|", r["worst"])
+    assert r["worst"][0] <= NCCL_GRAD_BOUND, r["worst"]
+    say("26c-d seconds", time.perf_counter() - t1)
+    return out
+
+
 def sharded_kernel_entries(res, sep_err, warp_err, head_tail_err):
     """JSON entries of phase 25: the kernels at the sharded restore's slab
     shapes (1 x 1408 x 1280; the deconv and head tail on its half
@@ -3968,6 +4461,43 @@ def main():
     t25 = time.perf_counter()
     sharded = sharded_phase(gen)
     say("25 phase seconds", time.perf_counter() - t25)
+
+    phase(f"26 data-parallel SFF training on DDP: {DDP_WORLD} ranks on "
+          "cuda:0 under gloo (train_interp at full width, train_unfolding and "
+          "train_fusion main), a DDP step under NCCL at world 1, "
+          "dryrun_multichip(2) and dryrun.entry()")
+    t26 = time.perf_counter()
+    ddp = ddp_phase(gen)
+    say("26 phase seconds", time.perf_counter() - t26)
+    phase("26 the kernels at a data-parallel rank's shapes (CUDA events)")
+    times["ddp_fwd"] = time_sepconv(*DDP_INTERP_SIG, gen, reps=20)
+    times["ddp_bwd"] = time_sepconv_bwd(*DDP_INTERP_SIG, gen)
+    n, hw = DDP_INTERP_SIG[0], DDP_INTERP_SIG[2]
+    for kernel in ("fwd", "bwd"):
+        say_timing(f"sepconv_{kernel}[ddp train_interp {n}x1x{hw}^2 f32]",
+                   times[f"ddp_{kernel}"])
+        kernels.append({
+            "name": f"sepconv_{kernel}[ddp train_interp {n}x1x{hw}^2 f32]",
+            "route": "cuda", "source": f"sstem_tpu_torch/csrc/sepconv_{kernel}.cu",
+            "replaces": ("sstem_tpu/kernels/sepconv.py:240" if kernel == "fwd"
+                         else "sstem_tpu/kernels/sepconv.py:287"),
+            "launches": ddp["interp"][f"sepconv_{kernel}"],
+            "max_abs_err": (sep_err if kernel == "fwd" else bwd_err)[
+                DDP_INTERP_SIG], **times[f"ddp_{kernel}"]})
+    im_s, flow_s = warp_cases[DDP_WARP]
+    times[DDP_WARP] = timing(
+        cuda_ms(lambda: serving_warp(im_s, flow_s), reps=20),
+        cuda_ms(lambda: spatial_transform(im_s, flow_s), reps=5), None,
+        (DDP_WARP[0] * DDP_WARP[1] * DDP_WARP[2] * (4 + 8 + 4)
+         / HBM_BYTES_PER_S * 1e3, "bytes"))
+    name = "warp_bilinear[ddp train_fusion %dx%dx%d]" % DDP_WARP
+    say_timing(name, times[DDP_WARP])
+    kernels.append({
+        "name": name, "route": "cuda",
+        "source": "sstem_tpu_torch/csrc/warp_bilinear.cu",
+        "replaces": "sstem_tpu/kernels/warp_band.py:64",
+        "launches": ddp["fusion_warps"], "max_abs_err": warp_err[DDP_WARP],
+        **times[DDP_WARP]})
 
     kernels += new_kernel_entries(packed)
     kernels += sharded_kernel_entries(sharded, sep_err, warp_err,

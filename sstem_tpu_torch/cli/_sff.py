@@ -1,6 +1,7 @@
 """Shared pieces for the SFF trainers (counterpart of ``sstem_tpu/cli/_sff.py``:
 ``make_schedule``, ``make_pixel_criterion``, ``load_vgg_apply``,
-``psnr_valid_loop`` and ``epe_valid_loop``)."""
+``psnr_valid_loop`` and ``epe_valid_loop``; and ``data_parallel``, the
+port's form of the JAX trainers' data-parallel ``build``)."""
 
 import functools
 import os
@@ -9,7 +10,22 @@ import numpy as np
 import torch
 
 from sstem_tpu_torch import losses, metrics
+from sstem_tpu_torch.parallel import ddp
 from sstem_tpu_torch.train.schedules import poly_warmup_decay_lr
+
+
+def data_parallel(model, batch_size, device):
+    """The trained net as the train step takes it. Under a process group:
+    every BatchNorm made cross-rank (``ddp.convert_batchnorm``) and the net
+    wrapped in DDP (``ddp.wrap``), after checking that ``batch_size``, the
+    global batch, divides among the ranks (a ValueError naming both
+    numbers; the JAX trainers fall back to one device instead, which under
+    torchrun would repeat the work on every rank). Without a group:
+    ``model`` itself."""
+    if not ddp.is_distributed():
+        return model
+    ddp.local_batch_size(batch_size, ddp.world_size())
+    return ddp.wrap(ddp.convert_batchnorm(model), device)
 
 
 def make_schedule(tr):

@@ -9,6 +9,8 @@ PSNR through the whole chain.
 Usage: python -m sstem_tpu_torch.cli.train_fusion -c CFG
            [--config-dir ./config] [--max-iters N] [--device-datagen]
            [--resume-from SAVE_DIR] [--device cuda|cpu]
+       torchrun --nproc-per-node N -m sstem_tpu_torch.cli.train_fusion
+           -c CFG [--dist-backend nccl|gloo] [...]
 
 The flow checkpoint is a reference-format torch file, or a port trainer's
 save directory (its newest ``model-NNNNNN.ckpt``). Data, ``--device-datagen``
@@ -18,6 +20,10 @@ save directory (its newest ``model-NNNNNN.ckpt``). Data, ``--device-datagen``
 its save directory's newest checkpoint (weights, Adam's moments and the
 schedule's count), writing to this run's own directory. It runs on the CUDA
 card unless ``--device cpu`` is given.
+
+Under torchrun it trains data-parallel as ``train_unfolding`` does, with
+UNetSFF's BatchNorms cross-rank and UNetSFF alone in DDP: the frozen flow
+net stays outside it, in eval mode, on every rank.
 """
 
 import argparse
@@ -29,16 +35,19 @@ import torch
 from sstem_tpu_torch import losses
 from sstem_tpu_torch.cli import _sff, common
 from sstem_tpu_torch.cli._ckpt import load_model
-from sstem_tpu_torch.cli.train_interp import aug_from_cfg, require_device
-from sstem_tpu_torch.cli.train_unfolding import datagen_step
+from sstem_tpu_torch.cli.train_interp import (
+    aug_from_cfg, dist_backend_arg, require_device,
+)
+from sstem_tpu_torch.cli.train_unfolding import datagen_step, make_provider
 from sstem_tpu_torch.compat.config import load_sff_config
 from sstem_tpu_torch.compat.weights import load_reference
 from sstem_tpu_torch.config import disable_tf32
 from sstem_tpu_torch.data.providers import (
-    FusionTrainDataset, FusionValidDataset, Provider, RawCropPairDataset,
+    FusionTrainDataset, FusionValidDataset, RawCropPairDataset,
 )
 from sstem_tpu_torch.kernels import serving_warp
 from sstem_tpu_torch.models import FusionNet, UNetSFF
+from sstem_tpu_torch.parallel import ddp
 from sstem_tpu_torch.train.checkpoint import restore_checkpoint
 from sstem_tpu_torch.train.device_datagen import degraded_batch
 from sstem_tpu_torch.train.loop import run_training, save_collage, to_uint8
@@ -76,11 +85,14 @@ def load_flow_model(path, ngf, device):
     return model.to(device).eval().requires_grad_(False)
 
 
-def build(cfg, flow_model, device="cuda", seed=0):
+def build(cfg, flow_model, device="cuda", seed=0, data_parallel=True):
     """UNetSFF(TRAIN.output_nc) from ``seed`` on ``device`` behind the frozen
-    ``flow_model``, with its optimizer, train step and eval step. Returns
-    (unet, opt, train_step, eval_fn, schedule); train_step(state, (inputs,
-    clean)) -> (state, metrics), L1 on the fused section."""
+    ``flow_model``, with its optimizer, train step and eval step. With
+    ``data_parallel`` under a process group the U-Net has cross-rank
+    BatchNorms and is wrapped in DDP (``_sff.data_parallel``); the flow net
+    stays outside, and the eval step runs the bare U-Net. Returns (unet,
+    opt, train_step, eval_fn, schedule); train_step(state, (inputs, clean))
+    -> (state, metrics), L1 on the fused section."""
     tr = cfg.TRAIN
     unet = UNetSFF(out_channel=tr.output_nc,
                    generator=torch.Generator().manual_seed(seed)).to(device)
@@ -95,9 +107,12 @@ def build(cfg, flow_model, device="cuda", seed=0):
 
     @torch.inference_mode()
     def eval_fn(x):
-        unet.eval()
-        return compose_forward(flow_model, unet, x)
+        bare.eval()
+        return compose_forward(flow_model, bare, x)
 
+    bare = unet
+    if data_parallel:
+        unet = _sff.data_parallel(unet, tr.get("batch_size"), device)
     return unet, opt, make_train_step(loss_fn), eval_fn, schedule
 
 
@@ -135,8 +150,19 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="where to train (default: the CUDA card)")
+    dist_backend_arg(parser)
     args = parser.parse_args(argv)
-    device = require_device(args.device, "train_fusion")
+    device, joined = common.rank_device(
+        require_device(args.device, "train_fusion"), args.dist_backend)
+    try:
+        return run(args, device)
+    finally:
+        if joined:
+            ddp.teardown()
+
+
+def run(args, device):
+    """``main`` after the arguments and the device."""
     disable_tf32()
 
     cfg = load_sff_config(args.cfg, args.config_dir)
@@ -168,8 +194,7 @@ def main(argv=None):
             gt_line=cfg.DATA.get("gt_line", False), aug=aug)
 
         def provider_fn(start_iter):
-            return Provider(ds, tr.batch_size, seed=tr.random_seed,
-                            device=device)
+            return make_provider(ds, tr, device)
 
     valid_ds = None
     if tr.if_valid and cfg.DATA.get("valid_txt"):
@@ -186,7 +211,7 @@ def main(argv=None):
         ck = restore_checkpoint(resume_dir, None if args.resume_from
                                 else tr.get("model_id"))
         if ck is not None:
-            load_reference(unet, ck)
+            load_reference(ddp.unwrap(unet), ck)
             start_iter = int(ck["current_iter"])
             if "optimizer_weights" in ck:
                 opt.load_state_dict(ck["optimizer_weights"])

@@ -4,6 +4,8 @@ the reference's ``main_ms.py``).
 Usage: python -m sstem_tpu_torch.cli.train_interp -c ms_l1loss_decay
            [--config-dir ./config] [--max-iters N] [--device-datagen]
            [--vgg-weights VGG19_PTH] [--device cuda|cpu]
+       torchrun --nproc-per-node N -m sstem_tpu_torch.cli.train_interp
+           -c CFG [--dist-backend nccl|gloo] [...]
 
 Accepts unmodified reference configs (config name resolved against
 ``--config-dir``, or a path). It trains IFNet (1 frame) with K =
@@ -20,6 +22,14 @@ dihedral augmentations and the frame swap, are sampled there
 host streams only the step counter. It falls back to host streaming when the pixel
 augmentations (color jitter, noise, elastic) are on or the images differ
 in size.
+
+Under torchrun each process is one rank of a data-parallel run
+(``parallel.ddp``): rank r trains on ``cuda:{r % cards}`` (NCCL, the
+default backend on the card, needs a card a rank; ``--dist-backend gloo``
+lets ranks share one), takes its rows of each global batch of
+TRAIN.batch_size (which must divide among the ranks), and the net is
+wrapped in DDP; rank 0 alone writes the files. The pool stays one-process
+only: under a process group ``--device-datagen`` streams from the host.
 """
 
 import argparse
@@ -36,6 +46,7 @@ from sstem_tpu_torch.data.providers import (
     AugConfig, InterpTrainDataset, InterpValidDataset, Provider,
 )
 from sstem_tpu_torch.models import IFNet
+from sstem_tpu_torch.parallel import ddp
 from sstem_tpu_torch.train.device_datagen import (
     CounterProvider, make_pool_interp_step,
 )
@@ -68,13 +79,15 @@ def require_device(device, cli):
     return torch.device(device)
 
 
-def build(cfg, device="cuda", seed=0, vgg_weights=None):
+def build(cfg, device="cuda", seed=0, vgg_weights=None, data_parallel=True):
     """IFNet from ``seed`` on ``device`` with its optimizer, train step and
     eval step. The loss is cfg.TRAIN.loss; the perceptual one runs a frozen
     VGG19 from ``vgg_weights`` with TRAIN.vgg_weight, com_weight and
     loss_combine (defaults 1.0, 1.0, L1; train_interp.py:46-52 of the JAX
-    package). Returns (model, opt, train_step, eval_fn, schedule,
-    criterion); train_step(state, (inputs, target)) -> (state, metrics)."""
+    package). With ``data_parallel`` under a process group the model is
+    wrapped in DDP (``_sff.data_parallel``); the eval step runs the bare
+    net. Returns (model, opt, train_step, eval_fn, schedule, criterion);
+    train_step(state, (inputs, target)) -> (state, metrics)."""
     tr = cfg.TRAIN
     model = IFNet(kernel_size=tr.kernel_size,
                   generator=torch.Generator().manual_seed(seed)).to(device)
@@ -94,8 +107,17 @@ def build(cfg, device="cuda", seed=0, vgg_weights=None):
         inputs, target = batch
         return criterion(model(inputs), target), {}
 
-    return (model, opt, make_train_step(loss_fn), make_eval_step(model),
-            schedule, criterion)
+    eval_fn = make_eval_step(model)
+    if data_parallel:
+        model = _sff.data_parallel(model, tr.get("batch_size"), device)
+    return model, opt, make_train_step(loss_fn), eval_fn, schedule, criterion
+
+
+def dist_backend_arg(parser):
+    parser.add_argument("--dist-backend", type=str, default=None,
+                        choices=["nccl", "gloo"],
+                        help="under torchrun: the process group's backend "
+                             "(default nccl on the card, gloo on the CPU)")
 
 
 def main(argv=None):
@@ -114,8 +136,19 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="where to train (default: the CUDA card)")
+    dist_backend_arg(parser)
     args = parser.parse_args(argv)
-    device = require_device(args.device, "train_interp")
+    device, joined = common.rank_device(
+        require_device(args.device, "train_interp"), args.dist_backend)
+    try:
+        return run(args, device)
+    finally:
+        if joined:
+            ddp.teardown()
+
+
+def run(args, device):
+    """``main`` after the arguments and the device."""
     disable_tf32()
 
     cfg = load_sff_config(args.cfg, args.config_dir)
@@ -139,11 +172,13 @@ def main(argv=None):
     if args.device_datagen:
         # the pool step does crop, dihedral and frame swap; the pixel augs
         # stay on the host streaming path
-        if not (aug.color_jitter or aug.gauss_noise or aug.elastic_trans):
+        if ddp.world_size() == 1 and not (
+                aug.color_jitter or aug.gauss_noise or aug.elastic_trans):
             pool = ds.load_pool()
         if pool is None:
             logger.warning("--device-datagen: falling back to host streaming "
-                           "(pixel augs, or a non-uniform or oversized pool)")
+                           "(a process group, pixel augs, or a non-uniform "
+                           "or oversized pool)")
         else:
             logger.info("device-datagen: pool on the card %s (%.0f MB)",
                         pool.shape, pool.nbytes / 1e6)
@@ -160,10 +195,11 @@ def main(argv=None):
     if tr.resume:
         ck = restore_checkpoint(paths["save_path"], tr.get("model_id"))
         if ck is not None:
-            load_reference(model, ck)
+            load_reference(ddp.unwrap(model), ck)
             start_iter = int(ck["current_iter"])
     provider = (CounterProvider(start_iter) if pool is not None else
-                Provider(ds, tr.batch_size, seed=tr.random_seed, device=device))
+                Provider(ds, tr.batch_size, seed=tr.random_seed, device=device,
+                         rank=ddp.rank(), world=ddp.world_size()))
 
     def valid_fn(st, iters):
         score = _sff.psnr_valid_loop(eval_fn, valid_ds, device,

@@ -7,6 +7,8 @@ and a warped preview.
 Usage: python -m sstem_tpu_torch.cli.train_unfolding -c CFG
            [--config-dir ./config] [--max-iters N] [--device-datagen]
            [--device cuda|cpu]
+       torchrun --nproc-per-node N -m sstem_tpu_torch.cli.train_unfolding
+           -c CFG [--dist-backend nccl|gloo] [...]
 
 The training pairs are DATA.train_txt's triplet rows (the middle section is
 the clean image) with DATA.interp_train_txt's interp images, which
@@ -20,6 +22,13 @@ is set) under the poly warmup/decay LR. It writes ``loss.txt``,
 ``valid.txt``, preview PNGs and ``model-%06d.ckpt`` files in the reference
 payload, and resumes from the latest checkpoint when TRAIN.resume is set.
 It runs on the CUDA card unless ``--device cpu`` is given.
+
+Under torchrun it trains data-parallel as ``train_interp`` does, with
+FusionNet's BatchNorms cross-rank (``parallel.ddp.CrossRankBatchNorm2d``:
+their statistics span the global batch, as the JAX step's do over its
+mesh). ``--device-datagen`` then streams raw crops from the host and each
+rank degrades its rows of the global batch on its device (the pool is
+one-process only, as in JAX).
 """
 
 import argparse
@@ -31,7 +40,9 @@ import torch
 
 from sstem_tpu_torch import losses
 from sstem_tpu_torch.cli import _sff, common
-from sstem_tpu_torch.cli.train_interp import aug_from_cfg, require_device
+from sstem_tpu_torch.cli.train_interp import (
+    aug_from_cfg, dist_backend_arg, require_device,
+)
 from sstem_tpu_torch.compat.config import load_sff_config
 from sstem_tpu_torch.compat.weights import load_reference
 from sstem_tpu_torch.config import disable_tf32
@@ -40,6 +51,7 @@ from sstem_tpu_torch.data.providers import (
 )
 from sstem_tpu_torch.kernels import serving_warp
 from sstem_tpu_torch.models import FusionNet
+from sstem_tpu_torch.parallel import ddp
 from sstem_tpu_torch.train import device_datagen
 from sstem_tpu_torch.train.checkpoint import restore_checkpoint
 from sstem_tpu_torch.train.loop import run_training, save_collage, to_uint8
@@ -48,11 +60,13 @@ from sstem_tpu_torch.train.trainer import (
 )
 
 
-def build(cfg, device="cuda", seed=0):
+def build(cfg, device="cuda", seed=0, data_parallel=True):
     """FusionNet(TRAIN.output_nc, TRAIN.ngf) from ``seed`` on ``device`` with
-    its optimizer, train step and eval step. Returns (model, opt,
-    train_step, eval_fn, schedule); train_step(state, (inputs, flow2)) ->
-    (state, metrics), L1 on the flow."""
+    its optimizer, train step and eval step. With ``data_parallel`` under a
+    process group the model has cross-rank BatchNorms and is wrapped in DDP
+    (``_sff.data_parallel``); the eval step runs the bare net. Returns
+    (model, opt, train_step, eval_fn, schedule); train_step(state, (inputs,
+    flow2)) -> (state, metrics), L1 on the flow."""
     tr = cfg.TRAIN
     model = FusionNet(output_nc=tr.output_nc, ngf=tr.ngf,
                       generator=torch.Generator().manual_seed(seed)).to(device)
@@ -64,17 +78,32 @@ def build(cfg, device="cuda", seed=0):
         inputs, target = batch
         return losses.l1_loss(model(inputs), target), {}
 
-    return model, opt, make_train_step(loss_fn), make_eval_step(model), schedule
+    eval_fn = make_eval_step(model)
+    if data_parallel:
+        model = _sff.data_parallel(model, tr.get("batch_size"), device)
+    return model, opt, make_train_step(loss_fn), eval_fn, schedule
+
+
+def make_provider(ds, tr, device):
+    """The host stream of TRAIN.batch_size batches (under a process group,
+    this rank's rows of each global batch)."""
+    return Provider(ds, tr.batch_size, seed=tr.random_seed, device=device,
+                    rank=ddp.rank(), world=ddp.world_size())
 
 
 def datagen_step(cfg, ds, device, base_loss, logger):
     """The ``--device-datagen`` step and its provider factory: from a pool
-    on the card when ``ds.load_pool()`` gives one, else over (clean, interp)
-    crops streamed from the host. Returns (train_step, provider_fn);
-    provider_fn(start_iter) -> provider."""
+    on the card when ``ds.load_pool()`` gives one (one process only), else
+    over (clean, interp) crops streamed from the host. Returns (train_step,
+    provider_fn); provider_fn(start_iter) -> provider."""
     tr = cfg.TRAIN
     seed = int(tr.random_seed or 0)
-    pool = ds.load_pool()
+    pool = None
+    if ddp.world_size() == 1:
+        pool = ds.load_pool()
+    else:
+        logger.warning("--device-datagen: the crop pool is one-process "
+                       "only; streaming raw crops from the host")
     if pool is not None:
         logger.info("device-datagen: pool on the card %s (%.0f MB)",
                     pool.shape, pool.nbytes / 1e6)
@@ -93,7 +122,7 @@ def datagen_step(cfg, ds, device, base_loss, logger):
 
     def provider_fn(start_iter):
         counter["it"] = itertools.count(start_iter + 1)
-        return Provider(ds, tr.batch_size, seed=tr.random_seed, device=device)
+        return make_provider(ds, tr, device)
 
     return step, provider_fn
 
@@ -112,8 +141,19 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="where to train (default: the CUDA card)")
+    dist_backend_arg(parser)
     args = parser.parse_args(argv)
-    device = require_device(args.device, "train_unfolding")
+    device, joined = common.rank_device(
+        require_device(args.device, "train_unfolding"), args.dist_backend)
+    try:
+        return run(args, device)
+    finally:
+        if joined:
+            ddp.teardown()
+
+
+def run(args, device):
+    """``main`` after the arguments and the device."""
     disable_tf32()
 
     cfg = load_sff_config(args.cfg, args.config_dir)
@@ -144,8 +184,7 @@ def main(argv=None):
             gt_line=cfg.DATA.get("gt_line", False), aug=aug)
 
         def provider_fn(start_iter):
-            return Provider(ds, tr.batch_size, seed=tr.random_seed,
-                            device=device)
+            return make_provider(ds, tr, device)
 
     valid_ds = None
     if tr.if_valid and cfg.DATA.get("valid_txt"):
@@ -159,7 +198,7 @@ def main(argv=None):
     if tr.resume:
         ck = restore_checkpoint(paths["save_path"], tr.get("model_id"))
         if ck is not None:
-            load_reference(model, ck)
+            load_reference(ddp.unwrap(model), ck)
             start_iter = int(ck["current_iter"])
     provider = provider_fn(start_iter)
 

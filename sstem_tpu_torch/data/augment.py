@@ -15,7 +15,6 @@ Semantics from the reference providers
 """
 
 import numpy as np
-from scipy.ndimage import gaussian_filter, map_coordinates
 
 
 def dihedral(stack, rng, fliplr=True, flipud=True, transpose=True, rot=True):
@@ -77,6 +76,8 @@ def elastic_transform(images, labels, rng, alpha_range=100.0, sigma=10.0,
     """Simard-style joint elastic deformation of (C,H,W) images and labels.
 
     Returns border-shaved arrays ((C, H-2s, W-2s))."""
+    from scipy.ndimage import gaussian_filter, map_coordinates  # slow import
+
     alpha = rng.uniform(0, alpha_range)
     shape = images.shape[1:]
     dx = gaussian_filter(rng.uniform(size=shape) * 2 - 1, sigma,

@@ -32,7 +32,9 @@
     thread the batches are the JAX provider's. Samples are tuples or dicts
     of arrays; ``next()`` returns a tuple or dict of NCHW tensors on the
     trainer's device, copied from pinned host memory with ``non_blocking``
-    when the device is a CUDA card.
+    when the device is a CUDA card. Under data parallelism
+    (``rank``/``world``) it draws the same global batches on every rank
+    and keeps this rank's rows.
 """
 
 import os
@@ -45,6 +47,7 @@ import torch
 
 from sstem_tpu_torch.data import augment
 from sstem_tpu_torch.data.sim_sff import degrade_sff
+from sstem_tpu_torch.parallel.ddp import local_batch_size, rank_rows, shared_seed
 
 
 def _read_gray(path):
@@ -443,23 +446,43 @@ class Provider:
     ``Provider(dataset, batch_size).next()`` returns the next batch on
     ``device``: a tuple of (B, ...) tensors from samples that are tuples of
     arrays, or a dict of them from samples that are dicts.
+
+    Data parallelism: with ``world`` > 1 ``batch_size`` is the global
+    batch, which must divide among the ranks, and ``next()`` returns rank
+    ``rank``'s rows of it (``parallel.ddp.rank_rows``). Every rank draws
+    the whole global batch from the same streams (an unseeded provider
+    takes a seed broadcast from rank 0), so each rank does the host work of
+    all ranks; with ``num_threads=1`` a rank's rows are exactly the
+    one-process provider's rows of the same batch. Each thread then has a
+    queue of its own, taken in turn, so that every rank takes the same
+    global batch at each step; with one rank the threads share one queue,
+    the first batch ready going first.
     """
 
     def __init__(self, dataset, batch_size, seed=555, num_threads=2,
-                 prefetch=4, device="cpu"):
+                 prefetch=4, device="cpu", rank=0, world=1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
-        self._q = queue.Queue(maxsize=prefetch)
+        self.rank, self.world = rank, world
+        local_batch_size(batch_size, world)
+        if world > 1:
+            seed = shared_seed(seed)
+        n = max(1, num_threads)
+        shared = queue.Queue(maxsize=prefetch)
+        self._queues = ([queue.Queue(maxsize=prefetch) for _ in range(n)]
+                        if world > 1 else [shared] * n)
+        self._turn = 0
         self._stop = threading.Event()
         self._threads = []
-        for t in range(max(1, num_threads)):
+        for t in range(n):
             rng = np.random.default_rng(None if seed in (-1, None) else seed + t)
-            th = threading.Thread(target=self._worker, args=(rng,), daemon=True)
+            th = threading.Thread(target=self._worker,
+                                  args=(rng, self._queues[t]), daemon=True)
             th.start()
             self._threads.append(th)
 
-    def _worker(self, rng):
+    def _worker(self, rng, q):
         while not self._stop.is_set():
             samples = [self.dataset.sample(rng) for _ in range(self.batch_size)]
             if isinstance(samples[0], dict):
@@ -467,10 +490,11 @@ class Provider:
                          for k in samples[0]}
             else:
                 batch = tuple(np.stack(xs) for xs in zip(*samples))
+            batch = rank_rows(batch, self.rank, self.world)
             # retry the SAME batch on backpressure: rebuilding it costs host CPU
             while not self._stop.is_set():
                 try:
-                    self._q.put(batch, timeout=1.0)
+                    q.put(batch, timeout=1.0)
                     break
                 except queue.Full:
                     continue
@@ -484,12 +508,20 @@ class Provider:
         return t.to(self.device)
 
     def next(self):
-        batch = self._q.get()
+        batch = self._queues[self._turn].get()
+        self._turn = (self._turn + 1) % len(self._queues)
         if isinstance(batch, dict):
             return {k: self._to_device(a) for k, a in batch.items()}
         return tuple(self._to_device(a) for a in batch)
 
     def close(self):
         self._stop.set()
+        # a worker blocked on a full queue puts its batch and sees the stop
+        for q in set(self._queues):
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
         for th in self._threads:
             th.join(timeout=5.0)

@@ -260,7 +260,7 @@ def degrade_with_params(images, params, det_size=256, min_zero=100):
 
 def degrade_sff_batch(images, gen, det_size=256, candidates=4,
                       line_width_range=(5, 50), fold_width_max=80,
-                      dis_k_range=(1e-5, 0.1), min_zero=100):
+                      dis_k_range=(1e-5, 0.1), min_zero=100, rank=0, world=1):
     """Batched SFF degradation on the images' device.
 
     Args:
@@ -269,12 +269,18 @@ def degrade_sff_batch(images, gen, det_size=256, candidates=4,
       det_size: centre-crop size of the returned degraded and label fields.
       candidates: fold parameter draws per image (a bounded replacement for
         the reference's unbounded retry loop).
+      rank, world: ``images`` are rank ``rank``'s rows of a global batch of
+        ``world * B`` (data parallelism). The parameters of the whole
+        global batch are drawn (the draw couples the images), and this
+        rank's rows applied, so the result is exactly those rows of the
+        one-process degradation of the global batch.
 
     Returns degraded (B, det, det) float32 in 0..255, flow2 (B, det, det, 2).
     """
     bsz, height, width = images.shape
-    params = sample_fold_params_batch(gen, bsz * candidates, height, width,
-                                      line_width_range, fold_width_max,
+    params = sample_fold_params_batch(gen, world * bsz * candidates, height,
+                                      width, line_width_range, fold_width_max,
                                       dis_k_range)
-    params = [p.reshape(bsz, candidates) for p in params]
+    params = [p.reshape(world * bsz, candidates)[rank * bsz:(rank + 1) * bsz]
+              for p in params]
     return degrade_with_params(images, params, det_size, min_zero)

@@ -12,12 +12,13 @@ functions.
 import os
 
 import numpy as np
-from scipy.ndimage import gaussian_filter
 
 
 def synth_stack(n_sections=8, height=512, width=512, seed=0,
                 z_corr=0.9, feature_scale=6.0):
     """(Z, H, W) uint8 stack of correlated textures."""
+    from scipy.ndimage import gaussian_filter  # slow import
+
     rng = np.random.default_rng(seed)
     base = gaussian_filter(rng.standard_normal((height, width)), feature_scale)
     out = []

@@ -20,7 +20,6 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
-from scipy.signal import convolve2d
 
 
 def compute_psnr(img1, img2):
@@ -49,6 +48,8 @@ def matlab_style_gauss2d(shape=(3, 3), sigma=0.5):
 
 
 def _filter2(x, kernel, mode="same"):
+    from scipy.signal import convolve2d  # slow import
+
     return convolve2d(x, np.rot90(kernel, 2), mode=mode)
 
 
@@ -94,6 +95,8 @@ def calculate_psnr(img1, img2):
 
 
 def _ssim_single(img1, img2):
+    from scipy.signal import convolve2d  # slow import
+
     c1 = (0.01 * 255) ** 2
     c2 = (0.03 * 255) ** 2
     img1 = img1.astype(np.float64)

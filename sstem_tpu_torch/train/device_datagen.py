@@ -14,7 +14,10 @@ Every draw comes from a ``torch.Generator`` on the device seeded from the
 run's seed and the step index (``sim_sff.step_generator``), as the JAX
 package folds the step into its key, so a resumed run continues the stream.
 The loss functions take ``(model, batch)`` as ``train.trainer.make_train_step``
-calls them; the model is not an argument of the factories.
+calls them; the model is not an argument of the factories. The pool steps
+run in one process only, as the JAX package's do: under a process group
+the trainers stream raw crops from the host and degrade them here
+(``degraded_batch``).
 """
 
 import itertools
@@ -23,6 +26,7 @@ import torch
 
 from sstem_tpu_torch import losses
 from sstem_tpu_torch.data.sim_sff import degrade_sff_batch, step_generator
+from sstem_tpu_torch.parallel import ddp
 from sstem_tpu_torch.train.trainer import make_train_step
 
 # the generator streams of one step (the JAX package's key salts)
@@ -34,13 +38,20 @@ def degraded_batch(clean, interp, step_idx, seed=0, det_size=256,
     """Degrade a (B, c, c) batch of clean crops on their device (4 fold
     candidates an image, ``degrade_sff_batch``'s default, as the JAX step).
 
+    Under a process group ``clean`` and ``interp`` are this rank's rows of
+    the global batch, and the result is exactly those rows of the
+    one-process degradation of the global batch: every rank draws the
+    global batch's fold parameters from the step's generator and applies
+    its rows' (``degrade_sff_batch(rank=, world=)``).
+
     Returns inputs (B, 6, det, det) [degraded x3 ++ interp x3] / 255, the
     ground-truth unfolding flow (B, 2, det, det) and the clean centre crop
     (B, 1, det, det) / 255, all float32.
     """
     gen = step_generator(seed, step_idx, clean.device, DEGRADE_STREAM)
     degraded, flow2 = degrade_sff_batch(
-        clean, gen, det_size=det_size, line_width_range=line_width_range)
+        clean, gen, det_size=det_size, line_width_range=line_width_range,
+        rank=ddp.rank(), world=ddp.world_size())
     off = (clean.shape[1] - det_size) // 2
     sl = slice(off, off + det_size)
     interp_c = interp[:, sl, sl].float() / 255.0

@@ -8,14 +8,22 @@ tensorboard); ``model-%06d.ckpt`` saves, always including the last step,
 with the optimizer's state when ``save_optimizer`` is set.
 The host syncs with the card only at those boundaries (the loss is read
 there); between them the steps queue on the card's stream.
+
+Under a process group every rank steps, and rank 0 alone writes the files,
+the tensorboard scalars and the previews, validates (on the module inside
+the DDP wrapper, whose eval mode makes no collective call) and saves the
+checkpoints, which hold that module's state dict (the one-process run's
+keys). The other ranks wait at a barrier while rank 0 validates or saves.
 """
 
+import contextlib
 import logging
 import os
 import time
 
 import numpy as np
 
+from sstem_tpu_torch.parallel import ddp
 from sstem_tpu_torch.train.checkpoint import save_checkpoint
 
 
@@ -52,12 +60,16 @@ def run_training(*, provider, train_step, state, total_iters,
     schedule: optional fn step -> lr, logged only.
     """
     logger = logger or logging.getLogger("sstem_tpu_torch")
-    os.makedirs(cache_path, exist_ok=True)
-    os.makedirs(save_path, exist_ok=True)
-    if valid_path:
-        os.makedirs(valid_path, exist_ok=True)
-    with open(os.path.join(cache_path, "loss.txt"), "a") as f_loss, \
-            open(os.path.join(cache_path, "valid.txt"), "a") as f_valid:
+    lead = ddp.rank() == 0
+    with contextlib.ExitStack() as files:
+        if lead:
+            os.makedirs(cache_path, exist_ok=True)
+            os.makedirs(save_path, exist_ok=True)
+            if valid_path:
+                os.makedirs(valid_path, exist_ok=True)
+            f_loss, f_valid = (
+                files.enter_context(open(os.path.join(cache_path, name), "a"))
+                for name in ("loss.txt", "valid.txt"))
         iters = start_iter
         sum_time = 0.0
         while iters < total_iters:
@@ -65,7 +77,7 @@ def run_training(*, provider, train_step, state, total_iters,
             t1 = time.time()
             batch = provider.next()
             state, metrics = train_step(state, batch)
-            if iters % display_freq == 0 or iters == 1:
+            if lead and (iters % display_freq == 0 or iters == 1):
                 loss = float(metrics["loss"])  # device sync at display boundary
                 sum_time += time.time() - t1
                 lr = float(schedule(iters)) if schedule else float("nan")
@@ -87,7 +99,9 @@ def run_training(*, provider, train_step, state, total_iters,
                 if preview_fn is not None:
                     preview_fn(state, batch, iters)
 
-            if valid_fn is not None and (iters % save_freq == 0 or iters == 1):
+            validate = valid_fn is not None and (iters % save_freq == 0
+                                                 or iters == 1)
+            if lead and validate:
                 score, name = valid_fn(state, iters)
                 line = "model-%d, valid-%s=%.6f" % (iters, name, score)
                 logger.info(line)
@@ -97,9 +111,12 @@ def run_training(*, provider, train_step, state, total_iters,
                     writer.add_scalar(name, score, iters)
 
             # always checkpoint the final iteration, even off the save_freq grid
-            if iters % save_freq == 0 or iters == total_iters:
+            save = iters % save_freq == 0 or iters == total_iters
+            if lead and save:
                 save_checkpoint(
-                    save_path, iters, state.model.state_dict(),
+                    save_path, iters, ddp.unwrap(state.model).state_dict(),
                     opt_state=state.opt.state_dict() if save_optimizer else None)
                 logger.info("saved checkpoint at iters = %d", iters)
+            if validate or save:
+                ddp.barrier()
     return state

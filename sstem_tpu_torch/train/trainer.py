@@ -1,6 +1,12 @@
 """Train state, optimizer and step factories (counterpart of
 ``sstem_tpu/train/trainer.py``: ``TrainState``, ``make_optimizer``,
-``make_train_step`` and ``make_eval_step``, without the mesh).
+``make_train_step`` and ``make_eval_step``).
+
+The JAX step's mesh is a process group here: under one, the step's model
+is a ``DistributedDataParallel`` wrapper (``parallel.ddp.wrap``), each rank
+steps on its rows of the global batch, the backward averages the gradient
+over the ranks, and the step reports the loss's mean over the ranks, as
+the JAX step reports the global batch's (``parallel.ddp``).
 
 Optimizer parity with optax: ``Optimizer`` runs its update t (t = 0, 1, ...)
 at lr = schedule(t), as optax evaluates a schedule at its update count.
@@ -16,6 +22,8 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+
+from sstem_tpu_torch.parallel.ddp import all_mean
 
 
 class Optimizer:
@@ -84,7 +92,8 @@ def make_train_step(loss_fn: Callable):
     loss_fn(model, batch) -> (loss, aux_dict). Returns
     step(state, batch) -> (state, metrics), which updates the model and the
     optimizer in place; ``metrics["loss"]`` is the loss as a detached 0-d
-    tensor on the model's device (no host sync).
+    tensor on the model's device (no host sync), under a process group its
+    mean over the ranks (one all-reduce).
     """
 
     def step(state: TrainState, batch):
@@ -94,7 +103,7 @@ def make_train_step(loss_fn: Callable):
         loss.backward()
         state.opt.step()
         metrics = dict(aux)
-        metrics["loss"] = loss.detach()
+        metrics["loss"] = all_mean(loss.detach())
         return state, metrics
 
     return step
