@@ -169,6 +169,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``dryrun.entry()`` run; then the sepconv kernels at a rank's
      signature and the warp at a rank's fusion step beside their plain
      versions and bounds
+ 27. the matmul-precision policy (``config.set_matmul_precision``) and the
+     quality tools: (a) in a fresh process started from torch's own flags,
+     with both TF32 flags raised before each, ``SFFPipeline(dtype=
+     PARITY_DTYPE)`` and ``infer_interp.main`` on the card leave both
+     False, phase 5's restore holds phase 5's bounds against the CPU, and
+     its largest level difference is printed beside the same restore with
+     TF32 forced on; (b) ``train_interp.build``'s step at phase 10's
+     workload under ``highest``, ``high`` and ``default``: loss, the worst
+     gradient difference from ``highest`` (``default`` must differ) and
+     ms/step (median of POLICY_STEPS after POLICY_WARM; informative, no
+     bound); (c) ``quality_run --device-datagen`` (16 triplets of 384^2,
+     QUALITY_ITERS a stage, K=51, ngf 32, 768^2 eval sections),
+     ``quality_run_sp`` (8 quartets of 320^2, 2 eval quartets of 512^2),
+     ``quality_check --packed-conv`` on the SFF run's checkpoints and
+     ``diagnose_fusion`` on its root: stage.json keys, finite report rows,
+     launches (sepconv forward and backward in the interp steps, a warp a
+     fusion step, conv3x3, pool and deconv in the bf16 column) asserted
+     and signatures checked; the bf16 deltas printed, not gated; then each
+     kernel at the shapes the tools add beside its plain version, library
+     call and bound
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -454,6 +474,29 @@ SP_CHECK_PATCH = 64
 SP_TRAIN_SIG = (SP_TRAIN_BATCH, 1, SP_TRAIN_PATCH, SP_TRAIN_PATCH, K,
                 "float32", "float32")
 
+# The quality tools' signatures (phase 27c, QUALITY_ARGS and
+# QUALITY_SP_ARGS): the sepconv forward's in quality_run (the interp steps,
+# 4 x 256^2; infer_interp_trainingset, 4 x 384^2; the eval restore of 3
+# sections of 768^2 in float32 and on the packed bf16 path), in
+# quality_run_sp (the VFI and fusion steps, 8 x 128^2, and the VFI
+# preview's row; the eval quartets' interps at 512^2) and in quality_check
+# (one 512^2 section on the packed path); the backward's in the interp and
+# SP steps; the warp's in the fusion steps (16 x 256^2), the eval restore
+# and quality_check. Each tool's run, whose launches the JSON line counts.
+_F32, _BF16 = ("float32", "float32"), ("bfloat16", "bfloat16")
+QUALITY_SEPCONV = (
+    (4, 1, 256, 256, K) + _F32, (4, 1, 384, 384, K) + _F32,
+    (3, 1, 768, 768, K) + _F32, (3, 1, 768, 768, K) + _BF16,
+    (8, 1, 128, 128, K) + _F32, (1, 1, 128, 128, K) + _F32,
+    (1, 1, 512, 512, K) + _F32, (1, 1, 512, 512, K) + _BF16,
+)
+QUALITY_SEPCONV_TOOLS = ("quality_run",) * 4 + ("quality_run_sp",) * 3 + (
+    "quality_check",)
+QUALITY_SEPCONV_BWD = ((4, 1, 256, 256, K) + _F32,
+                       (8, 1, 128, 128, K) + _F32)
+QUALITY_WARPS = ((16, 256, 256), (3, 768, 768), (1, 512, 512))
+QUALITY_WARP_TOOLS = ("quality_run", "quality_run", "quality_check")
+
 # The serving warp's shapes (n, h, w) that the paths launch: the SFF restore
 # (4 sections a group on the 1280^2 canvas), the fusion trainer's step
 # (SFF_TRAIN_BATCH x 256^2) and the trainers' previews (one 256^2 crop),
@@ -467,7 +510,7 @@ SP_TRAIN_SIG = (SP_TRAIN_BATCH, 1, SP_TRAIN_PATCH, SP_TRAIN_PATCH, K,
 WARP_CHECKS = ((4, 1280, 1280), (SFF_TRAIN_BATCH, SFF_TRAIN_DET, SFF_TRAIN_DET),
                (1, SFF_TRAIN_DET, SFF_TRAIN_DET), (1, 1250, 1250),
                (1, 1280, 1280), (1, 1408, 1280), (1, 320, 256), (4, 640, 640),
-               (2, 640, 640), DDP_WARP, (2, 250, 333))
+               (2, 640, 640), DDP_WARP) + QUALITY_WARPS + ((2, 250, 333),)
 
 # The sepconv forward's signatures (n, c, h, w, k, image dtype, maps dtype)
 # and the head tail's (n, hi, wi, cx, k) that the paths launch at full
@@ -504,6 +547,7 @@ SEPCONV_CHECKS = (
     (1, 1, 320, 256, K, "float32", "float32"),
     (4, 1, 640, 640, K, "float32", "float32"),
     (2, 1, 640, 640, K, "float32", "float32"),
+    *QUALITY_SEPCONV,
     (4, 1, 1280, 1280, K, "float32", "bfloat16"),
     (4, 1, 1280, 1280, K, "bfloat16", "float32"),
     (2, 2, 64, 96, 5, "float32", "float32"),
@@ -532,6 +576,7 @@ SEPCONV_BWD_CHECKS = (
     (32, 1, 256, 256, K, "float32", "float32"),
     SP_TRAIN_SIG,
     DDP_INTERP_SIG,
+    *QUALITY_SEPCONV_BWD,
     (2, 3, 61, 47, 11, "float32", "float32"),
     (1, 13, 40, 40, K, "float32", "float32"),
     (2, 1, 64, 96, 5, "float32", "bfloat16"),
@@ -4064,6 +4109,395 @@ def ddp_phase(gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the matmul-precision policy and the self-trained quality tools
+# ---------------------------------------------------------------------------
+
+PRECISIONS = ("highest", "high", "default")
+POLICY_STEPS, POLICY_WARM = 5, 2
+
+# 27c's workloads: the quality tools at full width (K=51, ngf 32, the
+# tools' default batches, crops and eval sections) and a short horizon
+QUALITY_ITERS = 20
+QUALITY_ARGS = ["--device-datagen", "--triplets", "16", "--img-size", "384",
+                "--iters", str(QUALITY_ITERS)]
+QUALITY_SP_ITERS = (20, 10, 12)  # vfi, denoise, fusion
+QUALITY_SP_ARGS = ["--quartets", "8", "--img-size", "320",
+                   "--eval-quartets", "2", "--eval-size", "512",
+                   "--iters-vfi", str(QUALITY_SP_ITERS[0]),
+                   "--iters-denoise", str(QUALITY_SP_ITERS[1]),
+                   "--iters-fusion", str(QUALITY_SP_ITERS[2])]
+QUALITY_STACK, QUALITY_CHECK_SIZE = 768, 512
+
+
+def fresh_process_script(gpu, cli_argv, out_dir, cpu_npz):
+    """27a's subprocess: a fresh interpreter, torch's own flags (cuDNN TF32
+    on), both TF32 flags raised before each entry point; the card's restore
+    against the CPU's in ``cpu_npz``; prints one JSON line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return f"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+from sstem_tpu_torch import config
+from sstem_tpu_torch.cli import infer_interp
+from sstem_tpu_torch.data import synth_stack
+
+cs.GPU = {gpu!r}
+def flags():
+    return [torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32]
+def tf32_on():
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+out = {{"torch_defaults": flags()}}
+small = synth_stack(5, 150, 170, seed=0)
+tf32_on()
+pipe = cs.build_pipeline("cuda", config.PARITY_DTYPE)
+out["after_pipeline"] = flags()
+gpu = pipe.restore_stack_scanned(small, [1, 3])
+saved = np.load({cpu_npz!r})
+cpu = {{i: {{k: saved[f"{{i}}/{{k}}"] for k in gpu[i]}} for i in (1, 3)}}
+cs.compare_pipelines(gpu, cpu, [1, 3])
+tf32_on()
+forced = pipe.restore_stack_scanned(small, [1, 3])
+def levels(a):
+    return max(int(np.abs(a[i][k].astype(np.int32)
+                          - cpu[i][k].astype(np.int32)).max())
+               for i in (1, 3) for k in ("interp", "fused", "warped"))
+out["level_diff_policy"] = levels(gpu)
+out["level_diff_tf32_on"] = levels(forced)
+tf32_on()
+infer_interp.main({cli_argv!r} + ["-op", {out_dir!r}])
+out["after_infer_interp"] = flags()
+print(json.dumps(out))
+"""
+
+
+def fresh_process_phase(root, cpu_out=None):
+    """27a: the fault repaired, in a process started from torch's defaults:
+    ``SFFPipeline(dtype=PARITY_DTYPE)`` and ``infer_interp.main`` on the
+    card leave both TF32 flags False; phase 5's restore card vs CPU
+    (``cpu_out``, phase 5's CPU side; made here when None) within phase 5's
+    bounds, and its largest uint8 level difference beside the same restore
+    with TF32 forced on. ``infer_interp`` runs on phase 20's case where it
+    exists."""
+    from sstem_tpu_torch import config
+    from sstem_tpu_torch.data import synth_stack
+
+    case = os.path.join(OUT, "sff_cli")
+    if os.path.exists(os.path.join(case, "interp.pth")):
+        argv = ["-c", os.path.join(case, "cfg.yaml"), "-ip",
+                os.path.join(case, "data"), "-t", "sff", "-m", "valid"]
+    else:
+        argv = write_cli_case(case)
+    argv += ["--ckpt", os.path.join(case, "interp.pth")]
+    os.makedirs(root, exist_ok=True)
+    if cpu_out is None:
+        cpu_out = build_pipeline("cpu", config.PARITY_DTYPE) \
+            .restore_stack_scanned(synth_stack(5, 150, 170, seed=0), [1, 3])
+    cpu_npz = os.path.join(root, "phase5_cpu.npz")
+    np.savez(cpu_npz, **{f"{i}/{k}": v for i, out in cpu_out.items()
+                         for k, v in out.items()})
+    script = fresh_process_script(GPU, argv, os.path.join(root, "out"),
+                                  cpu_npz)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", script],
+                          capture_output=True, text=True, timeout=600)
+    print(proc.stdout[-4000:], end="", flush=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    say("27a fresh process seconds", time.perf_counter() - t0)
+    say("27a torch's own flags (cudnn, matmul TF32)", res["torch_defaults"])
+    for key in ("after_pipeline", "after_infer_interp"):
+        say(f"27a TF32 flags {key}", res[key])
+        assert res[key] == [False, False], (key, res[key])
+    say("27a restore card vs cpu max level diff, policy applied (bound 1)",
+        res["level_diff_policy"])
+    say("27a restore card vs cpu max level diff, TF32 forced on",
+        res["level_diff_tf32_on"])
+    assert res["level_diff_policy"] <= 1, res
+    return res
+
+
+def policy_phase(root):
+    """27b: ``train_interp.build``'s step at phase 10's workload (IFNet
+    K=51, 32 x 256^2 from the seed, L1, AdamW) under each precision: the
+    loss and gradients of step 1 (the worst |g - g_highest| / max
+    |g_highest| over the tensors), then the step timed (median of
+    POLICY_STEPS after POLICY_WARM), sepconv 2 + 2 a step asserted and the
+    signatures checked. Informative times, no bound; ``default`` must
+    change the gradients."""
+    from sstem_tpu_torch import config
+    from sstem_tpu_torch.cli import train_interp
+    from sstem_tpu_torch.compat.config import load_sff_config
+    from sstem_tpu_torch.kernels import sepconv_planar, sepconv_planar_bwd
+    from sstem_tpu_torch.train.trainer import TrainState
+
+    cfg = load_sff_config(write_interp_config(root, os.path.join(root, "x")))
+    g = torch.Generator().manual_seed(SEED)
+    batch = (torch.rand(TRAIN_BATCH, 6, TRAIN_PATCH, TRAIN_PATCH,
+                        generator=g).to(DEV),
+             torch.rand(TRAIN_BATCH, 1, TRAIN_PATCH, TRAIN_PATCH,
+                        generator=g).to(DEV))
+    grads, out = {}, {}
+    try:
+        for name in PRECISIONS:
+            config.set_matmul_precision(name)
+            model, opt, step, _, _, criterion = train_interp.build(
+                cfg, DEV, seed=SEED)
+            loss = criterion(model(batch[0]), batch[1])
+            loss.backward()
+            grads[name] = {k: p.grad.clone() for k, p in
+                           model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            worst = max(float((grads[name][k] - ref).abs().max()
+                              / ref.abs().max().clamp_min(1e-30))
+                        for k, ref in grads["highest"].items())
+            state = TrainState(model, opt)
+            for _ in range(POLICY_WARM):
+                state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            sepconv_planar.launches = sepconv_planar_bwd.launches = 0
+            times = []
+            with KernelSignatures() as sig:
+                for _ in range(POLICY_STEPS):
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, batch)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            report_signatures(f"27b {name} step", sig, POLICY_STEPS, "step")
+            assert sepconv_planar.launches == 2 * POLICY_STEPS
+            assert sepconv_planar_bwd.launches == 2 * POLICY_STEPS
+            ms = statistics.median(times)
+            out[name] = {"loss": float(loss), "worst_grad": worst, "ms": ms}
+            say(f"27b {name} step-1 loss", float(loss))
+            say(f"27b {name} worst grad err vs highest / max|grad|", worst)
+            say(f"27b {name} ms/step (median of {POLICY_STEPS} after "
+                f"{POLICY_WARM} warm)", ms)
+            say(f"27b {name} ms/step runs", times)
+            assert np.isfinite(float(metrics["loss"]))
+            del model, opt, step, state
+    finally:
+        config.disable_tf32()
+    assert out["default"]["worst_grad"] > 1e-4, out["default"]
+    return out
+
+
+def tool_run(label, main, argv):
+    """One quality tool's ``main(argv)`` on the card with every kernel's
+    count from 0 and the signatures recorded (checked against the lists).
+    Returns (its result, {kernel: launches}, the signatures, seconds)."""
+    wrappers = counted_kernels()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with KernelSignatures() as sig:
+        result = main(argv)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    say(f"27c {label} seconds", seconds)
+    for k, n in launches.items():
+        say(f"27c {label} {k} launches", n)
+    report_signatures(f"27c {label}", sig, 1, "run",
+                      check_channels(SFF_CONV_CHECKS)
+                      | check_channels(DECONV_CHECKS, "deconv2x"))
+    return result, launches, sig, seconds
+
+
+def quality_tools_phase(root):
+    """27c: quality_run (--device-datagen), quality_run_sp, quality_check
+    (--packed-conv, on the SFF run's checkpoints) and diagnose_fusion (on
+    its root) at full width and a short horizon: every stage.json key, every
+    report row finite, the launches (sepconv forward and backward in the
+    interp steps, a warp a fusion step, conv3x3, pool and deconv in the
+    bf16 column) and the signatures. The bf16 deltas are printed, not
+    gated: at this horizon they mean nothing."""
+    from sstem_tpu_torch.tools import (
+        diagnose_fusion, quality_check, quality_run, quality_run_sp,
+    )
+
+    f32 = ("float32", "float32")
+    bf16 = ("bfloat16", "bfloat16")
+    group = PATH_LAUNCHES["packed"]
+    res = {}
+    sff = os.path.join(root, "sff")
+    results, launches, sig, _ = tool_run(
+        "quality_run", quality_run.main, ["--root", sff] + QUALITY_ARGS)
+    with open(os.path.join(sff, "stage.json")) as f:
+        stage = json.load(f)
+    assert sorted(stage) == ["cfg_i", "fusion_save", "interp_save",
+                             "interp_ts", "unfold_save"], stage
+    for mode, rows in results.items():
+        for key, (p, s) in rows.items():
+            say(f"27c quality_run {mode} {key} PSNR, SSIM", [p, s])
+            assert np.isfinite([p, s]).all(), (mode, key)
+    with open(os.path.join(sff, "SCORES.md")) as f:
+        text = f.read()
+    print(text, flush=True)
+    assert all(f"| {key} |" in text for key in quality_run.ROWS)
+    n = QUALITY_ITERS
+    interp = (4, 1, 256, 256, K) + f32
+    assert sig.maps[("sepconv",) + interp] == 2 * n, sig.maps
+    assert sig.maps[("sepconv_bwd",) + interp] == 2 * n, sig.maps
+    assert sig.warps[(16, 256, 256)] == n, sig.warps
+    assert sig.warps[(3, QUALITY_STACK, QUALITY_STACK)] == 2, sig.warps
+    for kernel in ("conv3x3_fused", "pool2x", "deconv2x_fused"):
+        assert launches[kernel] == group[kernel], (kernel, launches)
+    res["quality_run"] = launches
+
+    sp = os.path.join(root, "sp")
+    rows, launches, sig, _ = tool_run(
+        "quality_run_sp", quality_run_sp.main, ["--root", sp] + QUALITY_SP_ARGS)
+    with open(os.path.join(sp, "stage.json")) as f:
+        assert sorted(json.load(f)) == ["data", "denoise_save", "eval_data",
+                                        "fusion_save", "vfi_save"]
+    for key, (p, s) in rows.items():
+        say(f"27c quality_run_sp {key} PSNR, SSIM", [p, s])
+        assert np.isfinite([p, s]).all(), key
+    with open(os.path.join(sp, "SCORES_SP.md")) as f:
+        print(f.read(), flush=True)
+    vfi = (8, 1, 128, 128, K) + f32
+    steps = QUALITY_SP_ITERS[0] + QUALITY_SP_ITERS[2]
+    assert sig.maps[("sepconv_bwd",) + vfi] == 4 * steps, sig.maps
+    assert launches["sepconv_bwd"] == 4 * steps, launches
+    res["quality_run_sp"] = launches
+
+    rows, launches, sig, _ = tool_run(
+        "quality_check", quality_check.main,
+        ["--interp", stage["interp_save"], "--flow", stage["unfold_save"],
+         "--fusion", stage["fusion_save"], "--packed-conv"])
+    for key, (diff, psnr) in rows.items():
+        say(f"27c quality_check {key} max level diff, PSNR f32 vs bf16",
+            [diff, psnr])
+        assert np.isfinite(psnr), key
+    for kernel in ("conv3x3_fused", "pool2x", "deconv2x_fused"):
+        assert launches[kernel] == group[kernel], (kernel, launches)
+    assert launches["sepconv_fwd"] == 4 and launches["warp_bilinear"] == 2
+    res["quality_check"] = launches
+
+    report, launches, sig, _ = tool_run(
+        "diagnose_fusion", diagnose_fusion.main,
+        ["--root", sff, "--out", os.path.join(root, "diag.json")])
+    for name, row in report["psnr"].items():
+        say(f"27c diagnose_fusion PSNR {name}", row)
+    for name, row in report["epe"].items():
+        say(f"27c diagnose_fusion EPE {name}", row)
+        assert np.isfinite(list(row.values())).all(), name
+    say("27c diagnose_fusion fusion curve", report["curve"])
+    say("27c diagnose_fusion unfolding curve", report["curve_unfold"])
+    assert report["curve"] and report["curve_unfold"]
+    assert launches["sepconv_fwd"] == 2, launches
+    return res
+
+
+def precision_phase(gen, cpu_out=None):
+    """Phase 27: the fault (27a; ``cpu_out``: phase 5's CPU restore), the
+    three policies (27b), the quality tools (27c), then the kernels at the
+    shapes this phase adds beside their plain versions and bounds."""
+    import torch.nn.functional as F
+
+    from sstem_tpu_torch.kernels import pool2x, pool2x_plain, serving_warp
+    from sstem_tpu_torch.ops.warp import spatial_transform
+
+    root = os.path.join(OUT, "precision")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+    for step, fn, args in (
+            ("a", fresh_process_phase, (os.path.join(root, "a"), cpu_out)),
+            ("b", policy_phase, (root,)),
+            ("c", quality_tools_phase, (os.path.join(root, "q"),))):
+        t0 = time.perf_counter()
+        out[step] = fn(*args)
+        say(f"27{step} seconds", time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    times, err = {}, {}
+    for sig in QUALITY_SEPCONV:
+        times[("fwd", sig)] = time_sepconv(*sig, gen)
+        say_timing(f"sepconv_fwd[{sig}]", times[("fwd", sig)])
+    for sig in QUALITY_SEPCONV_BWD:
+        times[("bwd", sig)] = time_sepconv_bwd(*sig, gen)
+        say_timing(f"sepconv_bwd[{sig}]", times[("bwd", sig)])
+    for shape in QUALITY_WARPS:
+        im, flow = warp_inputs(*shape, gen)
+        times[shape] = timing(
+            cuda_ms(lambda: serving_warp(im, flow), reps=20),
+            cuda_ms(lambda: spatial_transform(im, flow), reps=5), None,
+            (shape[0] * shape[1] * shape[2] * (4 + 8 + 4)
+             / HBM_BYTES_PER_S * 1e3, "bytes"))
+        say_timing(f"warp_bilinear[{shape}]", times[shape])
+    n, hw = 3, QUALITY_STACK
+    conv_row, deconv_row = (n, hw, hw, 32, 32, None), (n, hw // 2, hw // 2,
+                                                       64, 32, None)
+    err["conv3x3_fused"] = check_conv(*conv_row[:5], "relu", None, gen)
+    err["deconv2x_fused"] = check_deconv(*deconv_row[:5], "relu", None, gen)
+    err["pool2x"] = check_pool(n, hw, hw, 32, "max", gen)
+    times.update(time_conv_rows([conv_row], gen, {}, 1))
+    times.update(time_deconv_rows([deconv_row], gen, {}, 1))
+    x = randn((n, hw, hw, 32), gen)
+    name = f"pool2x[max@{n}x{hw}x{hw}x32]"
+    times[name] = timing(
+        cuda_ms(lambda: pool2x(x, "max"), 50, 3),
+        cuda_ms(lambda: pool2x_plain(x, "max"), 5),
+        cuda_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2), 50, 3),
+        roofline(2 * n * hw * hw * 32 * 5 // 4, n * hw * hw * 32 // 4 * 4,
+                 F32_FLOP_PER_S))
+    say_timing(name, times[name])
+    say("27 kernel timing seconds", time.perf_counter() - t0)
+    out["times"], out["err"] = times, err
+    return out
+
+
+def precision_kernel_entries(res, sep_err, bwd_err, warp_err):
+    """JSON entries of phase 27: each kernel at the shapes the quality
+    tools add, its launches over the tool run that launched it."""
+    c = res["c"]
+    fwd, bwd = ("sepconv_fwd.cu", "sstem_tpu/kernels/sepconv.py:240"), \
+        ("sepconv_bwd.cu", "sstem_tpu/kernels/sepconv.py:287")
+    warp = ("warp_bilinear.cu", "sstem_tpu/kernels/warp_band.py:64")
+    entries = []
+    for sig, tool in zip(QUALITY_SEPCONV, QUALITY_SEPCONV_TOOLS):
+        entries.append((f"sepconv_fwd[{tool} {sig[0]}x1x{sig[2]}x{sig[3]} "
+                        f"{dtype_short(sig[5])}]", *fwd,
+                        c[tool]["sepconv_fwd"], sep_err[sig],
+                        res["times"][("fwd", sig)]))
+    for sig, tool in zip(QUALITY_SEPCONV_BWD, ("quality_run", "quality_run_sp")):
+        entries.append((f"sepconv_bwd[{tool} {sig[0]}x1x{sig[2]}x{sig[3]} "
+                        "f32]", *bwd, c[tool]["sepconv_bwd"], bwd_err[sig],
+                        res["times"][("bwd", sig)]))
+    for shape, tool in zip(QUALITY_WARPS, QUALITY_WARP_TOOLS):
+        entries.append((f"warp_bilinear[{tool} %dx%dx%d]" % shape, *warp,
+                        c[tool]["warp_bilinear"], warp_err[shape],
+                        res["times"][shape]))
+    for name, t in res["times"].items():
+        if not isinstance(name, str):
+            continue
+        kernel = name.split("[")[0]
+        source, replaces = {
+            "conv3x3_fused": ("conv3x3_fused.cu", "sstem_tpu/kernels/conv3x3.py:124"),
+            "deconv2x_fused": ("deconv2x_fused.cu", "sstem_tpu/kernels/deconv.py:63"),
+            "pool2x": ("pool2x.cu", "sstem_tpu/kernels/pool.py:45"),
+        }[kernel]
+        entries.append((f"{kernel}[quality_run bf16 {name.split('[')[1]}",
+                        source, replaces, c["quality_run"][kernel],
+                        res["err"][kernel], t))
+    return [{"name": name, "route": "cuda",
+             "source": "sstem_tpu_torch/csrc/" + source, "replaces": replaces,
+             "launches": launches, "max_abs_err": err,
+             **{k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by")}}
+            for name, source, replaces, launches, err, t in entries]
+
+
+def dtype_short(name):
+    return {"float32": "f32", "bfloat16": "bf16"}[name]
+
+
 def sharded_kernel_entries(res, sep_err, warp_err, head_tail_err):
     """JSON entries of phase 25: the kernels at the sharded restore's slab
     shapes (1 x 1408 x 1280; the deconv and head tail on its half
@@ -4498,6 +4932,15 @@ def main():
         "replaces": "sstem_tpu/kernels/warp_band.py:64",
         "launches": ddp["fusion_warps"], "max_abs_err": warp_err[DDP_WARP],
         **times[DDP_WARP]})
+
+    phase("27 the matmul-precision policy and the quality tools: a fresh "
+          "process (SFFPipeline, infer_interp), train_interp's step under "
+          "highest / high / default, quality_run, quality_run_sp, "
+          "quality_check and diagnose_fusion at full width")
+    t27 = time.perf_counter()
+    precision = precision_phase(gen, cpu_out)
+    say("27 phase seconds", time.perf_counter() - t27)
+    kernels += precision_kernel_entries(precision, sep_err, bwd_err, warp_err)
 
     kernels += new_kernel_entries(packed)
     kernels += sharded_kernel_entries(sharded, sep_err, warp_err,

@@ -19,6 +19,9 @@ def main(argv=None):
     parser.add_argument("-n", "--num", type=int, default=4000)
     parser.add_argument("--dialect", choices=["sff", "sp"], default="sff")
     args = parser.parse_args(argv)
+    from sstem_tpu_torch.config import apply_matmul_precision
+
+    apply_matmul_precision()
 
     if args.dialect == "sff":
         path = os.path.join(args.folder, "train_data.txt")

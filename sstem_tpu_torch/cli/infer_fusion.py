@@ -33,7 +33,9 @@ from PIL import Image
 from sstem_tpu_torch.cli._ckpt import load_model
 from sstem_tpu_torch.cli.infer_interp import score
 from sstem_tpu_torch.compat.config import load_sff_config
-from sstem_tpu_torch.config import PARITY_DTYPE, SERVING_DTYPE
+from sstem_tpu_torch.config import (
+    PARITY_DTYPE, SERVING_DTYPE, apply_matmul_precision,
+)
 from sstem_tpu_torch.infer.pipeline import SFFPipeline
 from sstem_tpu_torch.models import FusionNet, UNetSFF
 from sstem_tpu_torch.ops.flow_display import dense_flow
@@ -63,6 +65,7 @@ def main(argv=None):
     parser.add_argument("--packed-conv", action="store_true",
                         help="the fused-conv serving forwards, bf16")
     args = parser.parse_args(argv)
+    apply_matmul_precision()
 
     if "flownet" in args.flow_model.lower() and \
             "fusionnet" not in args.flow_model:

@@ -30,7 +30,9 @@ from PIL import Image
 from sstem_tpu_torch import metrics
 from sstem_tpu_torch.cli._ckpt import load_model
 from sstem_tpu_torch.compat.config import load_sff_config
-from sstem_tpu_torch.config import PARITY_DTYPE, SERVING_DTYPE
+from sstem_tpu_torch.config import (
+    PARITY_DTYPE, SERVING_DTYPE, apply_matmul_precision,
+)
 from sstem_tpu_torch.infer.pipeline import SFFPipeline
 from sstem_tpu_torch.models import IFNet
 
@@ -60,6 +62,7 @@ def main(argv=None):
     parser.add_argument("--packed-conv", action="store_true",
                         help="the fused-conv serving forward, bf16")
     args = parser.parse_args(argv)
+    apply_matmul_precision()
 
     cfg = load_sff_config(args.cfg, args.config_dir)
     with open(os.path.join(args.input_path, args.txt_file + ".txt")) as f:

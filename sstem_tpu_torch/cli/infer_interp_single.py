@@ -20,6 +20,7 @@ from PIL import Image
 
 from sstem_tpu_torch.cli._ckpt import load_model
 from sstem_tpu_torch.compat.config import load_sff_config
+from sstem_tpu_torch.config import apply_matmul_precision
 from sstem_tpu_torch.infer.pipeline import SFFPipeline
 from sstem_tpu_torch.models import IFNet
 
@@ -43,6 +44,7 @@ def main(argv=None):
     parser.add_argument("--ckpt", type=str, default=None)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    apply_matmul_precision()
 
     cfg = load_sff_config(args.cfg, args.config_dir)
     ckpt = args.ckpt or os.path.join("../trained_models", args.model_id,

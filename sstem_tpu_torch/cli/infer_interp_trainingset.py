@@ -22,6 +22,7 @@ from PIL import Image
 
 from sstem_tpu_torch.cli.infer_interp_single import interp_pipeline
 from sstem_tpu_torch.compat.config import load_sff_config
+from sstem_tpu_torch.config import apply_matmul_precision
 
 
 def main(argv=None):
@@ -33,6 +34,7 @@ def main(argv=None):
     parser.add_argument("--ckpt", type=str, default=None)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    apply_matmul_precision()
 
     cfg = load_sff_config(args.cfg, args.config_dir)
     folder = cfg.DATA.folder_name

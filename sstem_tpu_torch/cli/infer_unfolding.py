@@ -34,6 +34,7 @@ from sstem_tpu_torch import losses
 from sstem_tpu_torch.cli._ckpt import load_model
 from sstem_tpu_torch.cli.infer_interp import score
 from sstem_tpu_torch.compat.config import load_sff_config
+from sstem_tpu_torch.config import apply_matmul_precision
 from sstem_tpu_torch.infer.tiles import pad_to_multiple
 from sstem_tpu_torch.kernels import serving_warp
 from sstem_tpu_torch.models import FusionNet
@@ -64,6 +65,7 @@ def main(argv=None):
     parser.add_argument("--ckpt", type=str, default=None)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    apply_matmul_precision()
 
     if "flownet" in args.model_id.lower() and "fusionnet" not in args.model_id:
         raise SystemExit(

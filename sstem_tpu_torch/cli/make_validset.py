@@ -24,6 +24,9 @@ def main(argv=None):
     parser.add_argument("--det", type=int, default=256)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
+    from sstem_tpu_torch.config import apply_matmul_precision
+
+    apply_matmul_precision()
 
     from sstem_tpu_torch.data.validset import make_unfolding_validset
 

@@ -16,6 +16,7 @@ import os
 import numpy as np
 from PIL import Image
 
+from sstem_tpu_torch.config import apply_matmul_precision
 from sstem_tpu_torch.data.sim_sff import SimuSFF
 from sstem_tpu_torch.ops.flow_display import dense_flow
 
@@ -30,6 +31,7 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--no-noise", action="store_true")
     args = parser.parse_args(argv)
+    apply_matmul_precision()
 
     out_dir = args.output or args.path
     os.makedirs(out_dir, exist_ok=True)

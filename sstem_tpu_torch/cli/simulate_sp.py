@@ -18,6 +18,7 @@ import os
 import numpy as np
 from PIL import Image
 
+from sstem_tpu_torch.config import apply_matmul_precision
 from sstem_tpu_torch.data.sim_sp import MaskBank, simu_sp
 
 
@@ -32,6 +33,7 @@ def main(argv=None):
     parser.add_argument("--num-draws", type=int, default=1000)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
+    apply_matmul_precision()
 
     if args.synthetic_bank:
         bank = MaskBank.synthetic(n=args.synthetic_bank, seed=args.seed)

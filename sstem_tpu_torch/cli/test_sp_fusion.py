@@ -24,7 +24,9 @@ import torch
 
 from sstem_tpu_torch.cli._ckpt import load_model
 from sstem_tpu_torch.cli._sp import read_gray, write_png
-from sstem_tpu_torch.config import PARITY_DTYPE, SERVING_DTYPE
+from sstem_tpu_torch.config import (
+    PARITY_DTYPE, SERVING_DTYPE, apply_matmul_precision,
+)
 from sstem_tpu_torch.infer.pipeline import SPPipeline
 from sstem_tpu_torch.models import FusionNetSP, IFNet, UNetSP
 
@@ -49,6 +51,7 @@ def main(argv=None):
     parser.add_argument("--packed-conv", action="store_true",
                         help="the U-Nets' fused-conv serving forwards, bf16")
     args = parser.parse_args(argv)
+    apply_matmul_precision()
 
     paths = {}
     for name in ("vfi", "denoise", "fusion"):

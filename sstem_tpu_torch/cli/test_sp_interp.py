@@ -17,6 +17,7 @@ import torch
 
 from sstem_tpu_torch.cli._ckpt import load_model
 from sstem_tpu_torch.cli._sp import read_gray, write_png
+from sstem_tpu_torch.config import apply_matmul_precision
 from sstem_tpu_torch.infer.pipeline import SPPipeline
 from sstem_tpu_torch.models import IFNet
 
@@ -32,6 +33,7 @@ def main(argv=None):
     parser.add_argument("--kernel-size", type=int, default=51)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    apply_matmul_precision()
 
     t0 = time.time()
     vfi = load_model(lambda: IFNet(args.kernel_size, n_frames=2),

@@ -41,7 +41,7 @@ from sstem_tpu_torch.cli.train_interp import (
 from sstem_tpu_torch.cli.train_unfolding import datagen_step, make_provider
 from sstem_tpu_torch.compat.config import load_sff_config
 from sstem_tpu_torch.compat.weights import load_reference
-from sstem_tpu_torch.config import disable_tf32
+from sstem_tpu_torch.config import apply_matmul_precision
 from sstem_tpu_torch.data.providers import (
     FusionTrainDataset, FusionValidDataset, RawCropPairDataset,
 )
@@ -152,6 +152,7 @@ def main(argv=None):
                         help="where to train (default: the CUDA card)")
     dist_backend_arg(parser)
     args = parser.parse_args(argv)
+    apply_matmul_precision()
     device, joined = common.rank_device(
         require_device(args.device, "train_fusion"), args.dist_backend)
     try:
@@ -163,8 +164,6 @@ def main(argv=None):
 
 def run(args, device):
     """``main`` after the arguments and the device."""
-    disable_tf32()
-
     cfg = load_sff_config(args.cfg, args.config_dir)
     tr = cfg.TRAIN
     exp_name, paths, logger, writer = common.init_project(

@@ -9,7 +9,7 @@ Usage: python -m sstem_tpu_torch.cli.train_interp -c ms_l1loss_decay
 
 Accepts unmodified reference configs (config name resolved against
 ``--config-dir``, or a path). It trains IFNet (1 frame) with K =
-``TRAIN.kernel_size`` on augmented triplet crops, in float32 with TF32 off,
+``TRAIN.kernel_size`` on augmented triplet crops, in float32 (TF32 off by default),
 with the L1, L2, SSIM or perceptual loss (the last on a frozen VGG19 from
 ``--vgg-weights``, a torchvision state dict; refused without one) and Adam
 (AdamW when ``TRAIN.weight_decay`` is set) under the poly warmup/decay LR. It writes ``loss.txt``, ``valid.txt``,
@@ -41,7 +41,7 @@ import torch
 from sstem_tpu_torch.cli import _sff, common
 from sstem_tpu_torch.compat.config import load_sff_config
 from sstem_tpu_torch.compat.weights import load_reference
-from sstem_tpu_torch.config import disable_tf32
+from sstem_tpu_torch.config import apply_matmul_precision
 from sstem_tpu_torch.data.providers import (
     AugConfig, InterpTrainDataset, InterpValidDataset, Provider,
 )
@@ -138,6 +138,7 @@ def main(argv=None):
                         help="where to train (default: the CUDA card)")
     dist_backend_arg(parser)
     args = parser.parse_args(argv)
+    apply_matmul_precision()
     device, joined = common.rank_device(
         require_device(args.device, "train_interp"), args.dist_backend)
     try:
@@ -149,8 +150,6 @@ def main(argv=None):
 
 def run(args, device):
     """``main`` after the arguments and the device."""
-    disable_tf32()
-
     cfg = load_sff_config(args.cfg, args.config_dir)
     tr = cfg.TRAIN
     exp_name, paths, logger, writer = common.init_project(

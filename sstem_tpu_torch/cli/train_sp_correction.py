@@ -10,7 +10,7 @@ section 2, then on degraded section 3, so its BatchNorm running statistics
 are updated twice a step, the second update from the first's (as the JAX
 trainer threads ``batch_stats`` through both applications); L1 against the
 clean sections after the ``PAD`` loss crop. Adam under StepLR(30, 0.5)
-stepped once an epoch, float32 with TF32 off. Files, checkpoints (with the
+stepped once an epoch, float32 (TF32 off by default). Files, checkpoints (with the
 optimizer's state), auto-resume, ``--resume-torch`` and ``--device`` as in
 ``train_sp_interp``.
 """
@@ -25,7 +25,7 @@ from sstem_tpu_torch.cli import common
 from sstem_tpu_torch.cli.train_interp import require_device
 from sstem_tpu_torch.cli.train_sp_interp import resume, sp_arg_parser, sp_data
 from sstem_tpu_torch.compat.config import load_sp_config
-from sstem_tpu_torch.config import disable_tf32
+from sstem_tpu_torch.config import apply_matmul_precision
 from sstem_tpu_torch.models import UNetSP
 from sstem_tpu_torch.models.layers import skip_init
 from sstem_tpu_torch.ops import negative_pad_2d
@@ -65,8 +65,8 @@ def main(argv=None):
                         help="resume mid-flight from a reference torch .ckpt "
                              "(weights + Adam moments)")
     args = parser.parse_args(argv)
+    apply_matmul_precision()
     device = require_device(args.device, "train_sp_correction")
-    disable_tf32()
 
     cfg = load_sp_config(args.opt)
     exp_name, paths, logger, writer = common.init_project(

@@ -25,7 +25,7 @@ reference-format checkpoint per branch goes under
 ``model-%06d.ckpt`` at ``vfi_last_iter`` and ``denoise_last_iter``: under
 ``resume_path/vfi`` and ``resume_path/denoise`` where those exist (the
 layout this trainer writes at its end), else under ``resume_path`` itself
-(the JAX trainer's). Float32 with TF32 off; on the CUDA card unless
+(the JAX trainer's). Float32 (TF32 off by default); on the CUDA card unless
 ``--device cpu`` is given.
 """
 
@@ -41,7 +41,7 @@ from sstem_tpu_torch.cli.train_interp import require_device
 from sstem_tpu_torch.cli.train_sp_interp import sp_arg_parser, sp_data, vfi_inputs
 from sstem_tpu_torch.compat.config import load_sp_config
 from sstem_tpu_torch.compat.weights import load_reference
-from sstem_tpu_torch.config import disable_tf32
+from sstem_tpu_torch.config import apply_matmul_precision
 from sstem_tpu_torch.models import FusionNetSP, IFNet, UNetSP
 from sstem_tpu_torch.models.layers import skip_init
 from sstem_tpu_torch.ops import negative_pad_2d
@@ -164,8 +164,8 @@ def pretrained_branches(cfg):
 def main(argv=None):
     parser = sp_arg_parser("./config/train_fusion.yaml")
     args = parser.parse_args(argv)
+    apply_matmul_precision()
     device = require_device(args.device, "train_sp_fusion")
-    disable_tf32()
 
     cfg = load_sp_config(args.opt)
     exp_name, paths, logger, writer = common.init_project(

@@ -9,7 +9,7 @@ The two-frame IFNet (K = ``kernel_size``) runs on cat(img_1 x3, img_4 x3)
 and predicts sections 2 and 3 in one forward (the reference runs the model
 twice to slice the two output channels, main_interp.py:133-134: the same
 function). L1 on both frames after the ``PAD`` loss crop; Adam under
-StepLR(30, 0.5) stepped once an epoch; float32 with TF32 off. It writes
+StepLR(30, 0.5) stepped once an epoch; float32 (TF32 off by default). It writes
 ``loss.txt``, 3-row preview collages and ``model-%06d.ckpt`` files in the
 reference payload with the optimizer's state (``optimizer_weights``), and
 resumes from the newest checkpoint of its save directory. ``--resume-torch``
@@ -29,7 +29,7 @@ from sstem_tpu_torch.cli import common
 from sstem_tpu_torch.cli.train_interp import require_device
 from sstem_tpu_torch.compat.config import load_sp_config
 from sstem_tpu_torch.compat.weights import load_reference
-from sstem_tpu_torch.config import disable_tf32
+from sstem_tpu_torch.config import apply_matmul_precision
 from sstem_tpu_torch.data.providers import Provider, SPDataset
 from sstem_tpu_torch.models import IFNet
 from sstem_tpu_torch.models.layers import skip_init
@@ -120,8 +120,8 @@ def main(argv=None):
                         help="resume mid-flight from a reference torch .ckpt "
                              "(weights + Adam moments, main_interp.py:193-196)")
     args = parser.parse_args(argv)
+    apply_matmul_precision()
     device = require_device(args.device, "train_sp_interp")
-    disable_tf32()
 
     cfg = load_sp_config(args.opt)
     exp_name, paths, logger, writer = common.init_project(

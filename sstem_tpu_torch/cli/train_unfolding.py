@@ -17,7 +17,7 @@ crops with a random fold and centre-crops them to DATA.det_size: on the
 host (``UnfoldingTrainDataset``), or with ``--device-datagen`` on the
 training device (``train.device_datagen``: the whole set as a uint8 pool on
 the card when its images share a size, the host then streaming only the
-step counter). Float32 with TF32 off, Adam (AdamW when TRAIN.weight_decay
+step counter). Float32 (TF32 off by default), Adam (AdamW when TRAIN.weight_decay
 is set) under the poly warmup/decay LR. It writes ``loss.txt``,
 ``valid.txt``, preview PNGs and ``model-%06d.ckpt`` files in the reference
 payload, and resumes from the latest checkpoint when TRAIN.resume is set.
@@ -45,7 +45,7 @@ from sstem_tpu_torch.cli.train_interp import (
 )
 from sstem_tpu_torch.compat.config import load_sff_config
 from sstem_tpu_torch.compat.weights import load_reference
-from sstem_tpu_torch.config import disable_tf32
+from sstem_tpu_torch.config import apply_matmul_precision
 from sstem_tpu_torch.data.providers import (
     Provider, RawCropPairDataset, UnfoldingTrainDataset, UnfoldingValidDataset,
 )
@@ -143,6 +143,7 @@ def main(argv=None):
                         help="where to train (default: the CUDA card)")
     dist_backend_arg(parser)
     args = parser.parse_args(argv)
+    apply_matmul_precision()
     device, joined = common.rank_device(
         require_device(args.device, "train_unfolding"), args.dist_backend)
     try:
@@ -154,8 +155,6 @@ def main(argv=None):
 
 def run(args, device):
     """``main`` after the arguments and the device."""
-    disable_tf32()
-
     cfg = load_sff_config(args.cfg, args.config_dir)
     tr = cfg.TRAIN
     exp_name, paths, logger, writer = common.init_project(

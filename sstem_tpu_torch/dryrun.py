@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from sstem_tpu_torch.compat.config import AttrDict
+from sstem_tpu_torch.config import apply_matmul_precision
 
 
 def entry(device="cuda"):
@@ -25,6 +26,7 @@ def entry(device="cuda"):
     autograd."""
     from sstem_tpu_torch.models import IFNet
 
+    apply_matmul_precision()
     model = IFNet(kernel_size=51, generator=torch.Generator().manual_seed(0))
     model = model.to(device).eval()
     x = torch.zeros(1, 6, 256, 256, device=device)
@@ -62,14 +64,13 @@ def train_step_loss(device, batch, rank=0, world=1):
     """The loss of one ``train_interp.build`` step (weights from seed 0) on
     rank ``rank``'s rows of the global ``batch``, under the process group
     when there is one (DDP), else in one process on the whole batch; in
-    float32 with TF32 off, as the trainers run (so that every rank, a fresh
-    process, computes as the caller does)."""
+    float32 at the precision policy, as the trainers run (a rank, a fresh
+    process, takes the caller's policy from ``launch.spawn``)."""
     from sstem_tpu_torch.cli import train_interp
-    from sstem_tpu_torch.config import disable_tf32
     from sstem_tpu_torch.parallel import rank_rows
     from sstem_tpu_torch.train.trainer import TrainState
 
-    disable_tf32()
+    apply_matmul_precision()
     n = batch[0].shape[0]
     model, opt, step, _, _, _ = train_interp.build(dryrun_config(n), device,
                                                    seed=0)
@@ -110,6 +111,7 @@ def dryrun_multichip(n_devices, device="cuda", backend=None, timeout_s=600):
     from sstem_tpu_torch.models import FusionNet, IFNet, UNetSFF
     from sstem_tpu_torch.parallel import ddp, launch, make_mesh
 
+    apply_matmul_precision()
     if backend is None:
         backend = ddp.default_backend(device)
         if backend == "nccl" and n_devices > torch.cuda.device_count():

@@ -16,7 +16,9 @@ For each damaged section k of a (Z, H, W) uint8 stack:
 Reference semantics (``sff_scripts_fusion/inference.py:112-201``): eval-mode
 models, inputs /255, the zero-border warp, the stitch threshold of 2 levels.
 Every public method runs under ``torch.inference_mode()`` on ``device``, and
-returns numpy results from the ``restore_stack*`` entry points.
+returns numpy results from the ``restore_stack*`` entry points. Both
+constructors apply the matmul-precision policy (``config.py``): float32
+runs at ``"highest"`` (TF32 off) unless the caller set a lower one.
 
 With ``packed_conv=True`` the nets run as the serving forwards of
 ``models/serving.py`` (bf16, NHWC, the conv, pool, deconv and head-tail
@@ -33,7 +35,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sstem_tpu_torch.config import PARITY_DTYPE, SERVING_DTYPE
+from sstem_tpu_torch.config import (
+    PARITY_DTYPE, SERVING_DTYPE, apply_matmul_precision,
+)
 from sstem_tpu_torch.infer.tiles import pad_to_multiple
 from sstem_tpu_torch.kernels import serving_warp
 from sstem_tpu_torch.models.layers import set_compute_dtype
@@ -105,6 +109,7 @@ class SFFPipeline:
                 f"no float32 packed path); got dtype={dtype}")
         if fused_head_tail and not packed_conv:
             raise ValueError("fused_head_tail needs packed_conv=True")
+        apply_matmul_precision()
         ngf = None if flow_model is None else \
             flow_model.down_1.conv_1[0].out_channels
         if packed_conv and ngf not in (None, 32):
@@ -467,6 +472,7 @@ class SPPipeline:
         if vfi_model.n_frames != 2:
             raise ValueError("SPPipeline interpolates two sections: it needs "
                              "IFNet(kernel_size, n_frames=2)")
+        apply_matmul_precision()
         self.device = torch.device(device)
         self.packed_conv = packed_conv
         self.vfi_model = set_compute_dtype(vfi_model.to(self.device).eval(),

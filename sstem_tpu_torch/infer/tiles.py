@@ -13,6 +13,8 @@ Images are (N, H, W, C) for ``pad_to_multiple`` and ``infer_full``, one
 import torch
 import torch.nn.functional as F
 
+from sstem_tpu_torch.config import apply_matmul_precision
+
 # numpy's pad modes (the JAX package's names) -> F.pad's
 _PAD_MODES = {"edge": "replicate", "constant": "constant"}
 
@@ -44,6 +46,7 @@ def pad_to_multiple(x, multiple, mode="edge"):
 
 def infer_full(apply_fn, image, multiple=32):
     """Run ``apply_fn`` on a full (N, H, W, C) image, padded to the stride."""
+    apply_matmul_precision()
     padded, (h, w) = pad_to_multiple(image, multiple)
     return apply_fn(padded)[:, :h, :w, :]
 
@@ -92,6 +95,7 @@ def infer_tiled(apply_fn, image, tile=512, halo=64, batch=4, mesh=None,
     """
     from sstem_tpu_torch.parallel.mesh import shard_batch
 
+    apply_matmul_precision()
     tiles, grid = tile_image(image, tile, halo, mode)
     n = tiles.shape[0]
     if mesh is not None:

@@ -5,7 +5,8 @@ zoo).
   * ``ssim`` / ``ssim_loss`` — the reference ``SSIMLoss`` (1 - SSIM): an
     11x11 Gaussian window with sigma 1.5, applied per channel as a grouped
     conv with SAME (zero) padding, on [0, 1] NCHW images
-    (``sff_scripts_interp/loss/loss_ssim.py:74-135``);
+    (``sff_scripts_interp/loss/loss_ssim.py:74-135``); one bf16 pass under
+    the ``"default"`` matmul precision (``config.py``), as JAX's;
   * ``ms_ssim`` — the reference ``MS_SSIM`` (5 levels, window min(h, w, 11)
     with sigma scaled to it, a 2x2 average pool between levels, weights
     [0.0448, 0.2856, 0.3001, 0.2363, 0.1333], product form; max_val 255 by
@@ -26,6 +27,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from sstem_tpu_torch import config
 
 
 def l1_loss(pred, target):
@@ -50,6 +53,10 @@ def _grouped_blur(x, window_size: int, sigma: float):
     c = x.shape[1]
     w = torch.from_numpy(_gauss_window(window_size, sigma)).to(x.device, x.dtype)
     w = w.expand(c, 1, window_size, window_size)
+    if config.BF16_PASS and x.dtype == torch.float32:
+        # the "default" policy's single bf16 pass (config.py)
+        return F.conv2d(x.to(torch.bfloat16), w.to(torch.bfloat16),
+                        padding=window_size // 2, groups=c).float()
     return F.conv2d(x, w, padding=window_size // 2, groups=c)
 
 

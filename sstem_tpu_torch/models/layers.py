@@ -2,9 +2,12 @@
 
 Conv2d(k3 s1 p1), ConvTranspose2d(k3 s2 p1 op1) and BatchNorm2d are PyTorch's
 own; BatchNorm2d's running variance is already the unbiased one. The
-subclasses here only add the compute-dtype policy of ``config.py``: a conv
+subclasses here only add the numerical policy of ``config.py``: a conv
 runs in its weight's dtype and casts its input on entry (as JAX's
-``Conv2dTorch`` casts to ``compute_dtype()``), and BatchNorm normalises in
+``Conv2dTorch`` casts to ``compute_dtype()``), except that under the
+``"default"`` matmul precision a conv with float32 weights runs one bf16
+pass (input and weight cast to bf16, the result back to float32, the bias
+added in float32: JAX's ``Precision.DEFAULT``); BatchNorm normalises in
 its parameters' dtype (float32; float64 for a model cast whole, as the
 training-parity tests run it) and emits its input's dtype.
 
@@ -23,17 +26,47 @@ import contextlib
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from sstem_tpu_torch import config
+
+
+def _bf16_pass(w):
+    """Whether a conv with weight ``w`` runs the single bf16 pass."""
+    return config.BF16_PASS and w.dtype == torch.float32
+
+
+def _float32(y, bias):
+    """A bf16 pass's result in float32, NCHW-contiguous (cuDNN may return
+    a bf16 conv of a channels-last input in channels-last, where the
+    float32 conv returned NCHW), with the bias added in float32."""
+    y = y.to(torch.float32, memory_format=torch.contiguous_format)
+    return y if bias is None else y + bias[None, :, None, None]
 
 
 class Conv2d(nn.Conv2d):
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        w = self.weight
+        if _bf16_pass(w):
+            y = self._conv_forward(x.to(torch.bfloat16), w.to(torch.bfloat16),
+                                   None)
+            return _float32(y, self.bias)
+        return super().forward(x.to(w.dtype))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     def forward(self, x, output_size=None):
-        return super().forward(x.to(self.weight.dtype), output_size)
+        w = self.weight
+        if _bf16_pass(w):
+            op = self._output_padding(x, output_size, self.stride,
+                                      self.padding, self.kernel_size, 2,
+                                      self.dilation)
+            y = F.conv_transpose2d(
+                x.to(torch.bfloat16), w.to(torch.bfloat16), None, self.stride,
+                self.padding, op, self.groups, self.dilation)
+            return _float32(y, self.bias)
+        return super().forward(x.to(w.dtype), output_size)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -12,6 +12,7 @@ import socket
 import time
 import traceback
 
+from sstem_tpu_torch import config
 from sstem_tpu_torch.parallel import ddp
 
 
@@ -23,13 +24,14 @@ def free_port():
 
 
 def _rank_main(fn, rank, world, inbox, device, backend, init_method,
-               results):
-    """One rank: take ``fn``'s arguments from ``inbox``, join the group,
-    run ``fn`` and report (rank, True, result), then leave the group; or
-    report (rank, False, traceback) and exit, the parent then killing every
-    rank (a rank that failed may leave its peers waiting in a
-    collective)."""
+               results, precision):
+    """One rank: set the parent's matmul ``precision`` (``config.py``), take
+    ``fn``'s arguments from ``inbox``, join the group, run ``fn`` and report
+    (rank, True, result), then leave the group; or report (rank, False,
+    traceback) and exit, the parent then killing every rank (a rank that
+    failed may leave its peers waiting in a collective)."""
     try:
+        config.set_matmul_precision(precision)
         args = inbox.get()
         device = ddp.init_process_group(backend, init_method, rank, world,
                                         device=device)
@@ -65,7 +67,8 @@ def spawn(fn, world, *args, device="cpu", backend=None, init_method=None,
     inbox, results = ctx.Queue(), ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, world, inbox, device, backend,
-                               init_method, results))
+                               init_method, results,
+                               config.matmul_precision()))
              for r in range(world)]
     for p in procs:
         p.start()

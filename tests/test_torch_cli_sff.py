@@ -30,6 +30,7 @@ from sstem_tpu.cli import infer_interp_single as jax_single
 from sstem_tpu.cli import infer_interp_trainingset as jax_trainingset
 from sstem_tpu.cli import infer_unfolding as jax_unfolding
 from sstem_tpu.data.synthetic import synth_stack
+from sstem_tpu.infer.pipeline import SFFPipeline as JaxSFFPipeline
 from sstem_tpu.ops.flow_display import dense_flow as jax_dense_flow
 from sstem_tpu_torch import metrics
 from sstem_tpu_torch.cli import (
@@ -101,14 +102,33 @@ def _tree_config(root, who):
     return tree, ["-c", str(path), "--ckpt", str(root / "interp.pth")]
 
 
+def _one_interp_pipeline():
+    """A stand-in for ``SFFPipeline`` in the three JAX interp CLIs: the
+    first call builds the pipeline, later calls with the same settings get
+    that instance with their variables set. Its jitted functions take the
+    variables as arguments, so every call runs the same program on the same
+    inputs as with a pipeline of its own, and the interp is traced once
+    instead of once per CLI."""
+    built = {}
+
+    def build(interp_vars, **settings):
+        key = tuple(sorted(settings.items()))
+        if key not in built:
+            built[key] = JaxSFFPipeline(interp_vars=interp_vars, **settings)
+        built[key].interp_vars = interp_vars
+        return built[key]
+
+    return build
+
+
 @pytest.fixture(scope="module")
 def case(tmp_path_factory):
     """A 7-section 64^2 stack as PNGs with 3 damaged ids (each with a
     ground-truth flow2 HDF5 sidecar and a ground-truth PNG for the
     unfolding CLI's valid mode), the port models as reference checkpoints,
     a config, a triplet tree, and the JAX CLIs' outputs, each made once.
-    The JAX interp CLIs run one pair a call (-bs 1), which reuses one
-    compiled interp."""
+    The JAX interp CLIs run one pair a call (-bs 1) on one pipeline
+    (``_one_interp_pipeline``), which reuses one compiled interp."""
     import h5py
 
     root = tmp_path_factory.mktemp("sff_cli")
@@ -126,11 +146,16 @@ def case(tmp_path_factory):
     models = port_sff_models(K, sff_variables(K, seed=70))
     for name, model in zip(("interp", "flow", "fusion"), models):
         _save(model, root / f"{name}.pth")
-    jax_interp.main(_args(root, "jax") + ["--ckpt", str(root / "interp.pth")])
-    jax_fusion.main(_args(root, "jax") + _fusion_args(root))
-    jax_unfolding.main(_unfolding_args(root, "jax"))
-    jax_single.main(_single_args(root, "jax_single"))
-    jax_trainingset.main(_tree_config(root, "jax")[1] + ["-bs", "1"])
+    with pytest.MonkeyPatch.context() as mp:
+        build = _one_interp_pipeline()
+        for cli in (jax_interp, jax_single, jax_trainingset):
+            mp.setattr(cli, "SFFPipeline", build)
+        jax_interp.main(_args(root, "jax") +
+                        ["--ckpt", str(root / "interp.pth")])
+        jax_fusion.main(_args(root, "jax") + _fusion_args(root))
+        jax_unfolding.main(_unfolding_args(root, "jax"))
+        jax_single.main(_single_args(root, "jax_single"))
+        jax_trainingset.main(_tree_config(root, "jax")[1] + ["-bs", "1"])
     return root
 
 
