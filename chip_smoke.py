@@ -189,6 +189,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      and signatures checked; the bf16 deltas printed, not gated; then each
      kernel at the shapes the tools add beside its plain version, library
      call and bound
+ 28. the compute-dtype policy (``config.set_compute_dtype``): (a) both
+     sepconv kernels at the bf16 training signatures (BF16_TRAIN_SIG,
+     BF16_SP_TRAIN_SIG; phases 3 and 8 hold both designs against the
+     plain versions there) timed beside their bounds; (b) one L1 step of
+     IFNet(51) at 2 x 64^2 under "default" + "bfloat16" on the card
+     against the CPU, and the CPU's float32 step, within
+     DTYPE_CHECK_BOUNDS; (c) bench.py's interp cell (IFNet K=51, 32 x
+     256^2, L1, AdamW) and unfolding cell (FusionNet ngf 32, batch 8 of
+     400^2 crops from a uint8 pool on the card, degraded and cut to 256^2)
+     under each of DTYPE_SETTINGS in this call: ms/step, peak memory, idle
+     share and device ms by kind, sepconv 2 + 2 an interp step asserted,
+     a 20-step loss trajectory from the seed; (d) the six trainers'
+     ``main`` for 3 steps each under the policy: launches asserted,
+     signatures checked, checkpoints float32 only, the compute dtype
+     still bfloat16 afterwards
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -473,6 +488,12 @@ SP_CHECK_PATCH = 64
 # previews)
 SP_TRAIN_SIG = (SP_TRAIN_BATCH, 1, SP_TRAIN_PATCH, SP_TRAIN_PATCH, K,
                 "float32", "float32")
+# The same trainers under the bf16 compute dtype (phase 28,
+# config.set_compute_dtype("bfloat16")): bf16 frames and bf16 tap maps,
+# forward and backward
+BF16_TRAIN_SIG = (TRAIN_BATCH, 1, TRAIN_PATCH, TRAIN_PATCH, K, "bfloat16",
+                  "bfloat16")
+BF16_SP_TRAIN_SIG = SP_TRAIN_SIG[:5] + ("bfloat16", "bfloat16")
 
 # The quality tools' signatures (phase 27c, QUALITY_ARGS and
 # QUALITY_SP_ARGS): the sepconv forward's in quality_run (the interp steps,
@@ -523,7 +544,8 @@ WARP_CHECKS = ((4, 1280, 1280), (SFF_TRAIN_BATCH, SFF_TRAIN_DET, SFF_TRAIN_DET),
 # (phase 25: 1280^2 data-parallel, 1408 x 1280 with the 256-row halos of
 # the 1250^2 dp x sp run, 320 x 256 at its card-vs-CPU size) and the tiled
 # restore's 640^2 tiles, 4 a call (2 on each device of a 2-device mesh);
-# a data-parallel rank's training step (phase 26: 16 x 256^2).
+# a data-parallel rank's training step (phase 26: 16 x 256^2); the interp
+# and SP training steps under the bf16 compute dtype (phase 28).
 # Then the remaining dtype
 # pair, K = 5 and 11, and odd sizes and channel counts that take the first
 # designs (sepconv W % 4 != 0; head tail Cx % 8 != 0) or the edges of the
@@ -538,9 +560,13 @@ SEPCONV_CHECKS = (
     (32, 1, 256, 256, K, "float32", "float32"),
     DDP_INTERP_SIG,
     SP_TRAIN_SIG,
+    BF16_TRAIN_SIG,
+    BF16_SP_TRAIN_SIG,
     (1, 1, 1280, 1280, K, "float32", "float32"),
     (TRAININGSET_BS, 1, TRAININGSET_SIZE, TRAININGSET_SIZE, K, "float32",
      "float32"),
+    (TRAININGSET_BS, 1, TRAININGSET_SIZE, TRAININGSET_SIZE, K, "bfloat16",
+     "bfloat16"),
     (1, 1, 320, 320, K, "float32", "float32"),
     (1, 1, 1280, 1280, K, "bfloat16", "bfloat16"),
     (1, 1, 1408, 1280, K, "bfloat16", "bfloat16"),
@@ -565,11 +591,13 @@ HEAD_TAIL_CHECKS = (
 )
 # The sepconv backward's signatures, as SEPCONV_CHECKS writes them: the
 # interp training step's, the SP trainers' and a data-parallel rank's (the
-# three a path launches; phase 11 holds the first, phase 8 the rest), then
+# three a path launches; phase 11 holds the first, phase 8 the rest), the
+# quality tools' and the two training steps' under the bf16 compute dtype
+# (phase 28), then
 # rows for the simple design (W % 4 != 0), more channels than one block's
 # shared memory holds, bf16 maps and image, and C > 1 at odd H on the
 # blocked design. Phases 8 and 11 hold both designs against the plain
-# version at each; phases 10, 23 and 26 fail on a launched signature
+# version at each; phases 10, 23, 26 and 28 fail on a launched signature
 # missing here, and
 # tests/test_torch_conv_shapes.py on the training steps'.
 SEPCONV_BWD_CHECKS = (
@@ -577,6 +605,8 @@ SEPCONV_BWD_CHECKS = (
     SP_TRAIN_SIG,
     DDP_INTERP_SIG,
     *QUALITY_SEPCONV_BWD,
+    BF16_TRAIN_SIG,
+    BF16_SP_TRAIN_SIG,
     (2, 3, 61, 47, 11, "float32", "float32"),
     (1, 13, 40, 40, K, "float32", "float32"),
     (2, 1, 64, 96, 5, "float32", "bfloat16"),
@@ -4494,6 +4524,413 @@ def precision_kernel_entries(res, sep_err, bwd_err, warp_err):
             for name, source, replaces, launches, err, t in entries]
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the compute-dtype policy
+# ---------------------------------------------------------------------------
+
+# (matmul precision, compute dtype) of each timed training setting: float32
+# at "highest" and at "default" (one bf16 pass, float32 out), and
+# bench.py:109-111's "default" + "bfloat16" (bf16 activations over float32
+# parameters)
+DTYPE_SETTINGS = (("highest", None), ("default", None),
+                  ("default", "bfloat16"))
+DTYPE_STEPS, DTYPE_WARM, DTYPE_TRAJECTORY = 10, 3, 20
+# 28b: the IFNet step card vs CPU under "default" + "bfloat16", held as
+# tests/test_torch_compute_dtype.py holds the port's step to JAX's: the
+# loss (relative), the whole gradient and each conv's (kernel and bias
+# together; relative L2). A bf16 step's gradient is not defined per
+# tensor: a first card reading held each tensor's NRMSE from the CPU's
+# float32 gradient to twice the CPU bf16 step's plus 0.05, and the heads'
+# conv3 biases (sums over every pixel whose terms cancel) read 0.63 on
+# the card against 0.14 on the CPU; the CPU test reads 0.88 for JAX
+# against 0.39 for the port. The loss and whole-gradient bounds were fixed
+# before the first card reading, the per-conv bound before its first.
+DTYPE_CHECK_BATCH, DTYPE_CHECK_HW = 2, 64
+DTYPE_CHECK_BOUNDS = {"loss_rel": 1e-2, "grad_rel_l2": 0.1,
+                      "conv_rel_l2": 0.5}
+DTYPE_MAIN_STEPS = 3
+
+
+def rel_l2(got, want, keys):
+    """|got - want| / |want| over the tensors ``keys`` together."""
+    diff = sum(float((got[k] - want[k]).double().square().sum()) for k in keys)
+    norm = sum(float(want[k].double().square().sum()) for k in keys)
+    return (diff / max(norm, 1e-300)) ** 0.5
+
+
+def set_policy(precision, dtype):
+    from sstem_tpu_torch import config
+
+    config.set_matmul_precision(precision)
+    config.set_compute_dtype(dtype)
+
+
+def policy_label(precision, dtype):
+    return precision + ("+bf16" if dtype else "")
+
+
+def dtype_card_vs_cpu(seed=SEED, hw=DTYPE_CHECK_HW, batch=DTYPE_CHECK_BATCH):
+    """28b: one L1 step of IFNet(51) at batch x hw^2 from the same seeded
+    float32 weights and data: under "default" + "bfloat16" on the card and
+    on the CPU, and in float32 at "highest" on the CPU. Holds the bf16
+    prediction's dtype, the parameters' and gradients' float32, and the
+    card against the CPU within DTYPE_CHECK_BOUNDS; prints each bf16
+    side's distance from the float32 gradient."""
+    import copy
+
+    from sstem_tpu_torch import losses
+    from sstem_tpu_torch.models import IFNet
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.random((batch, 6, hw, hw), dtype=np.float32))
+    y = torch.from_numpy(rng.random((batch, 1, hw, hw), dtype=np.float32))
+    base = IFNet(K, generator=torch.Generator().manual_seed(seed))
+    runs = {}
+    try:
+        for label, dev, dtype in (("card", "cuda", "bfloat16"),
+                                  ("cpu", "cpu", "bfloat16"),
+                                  ("cpu_f32", "cpu", None)):
+            set_policy("default" if dtype else "highest", dtype)
+            model = copy.deepcopy(base).to(dev)
+            pred = model(x.to(dev))
+            assert pred.dtype == (torch.bfloat16 if dtype else torch.float32)
+            loss = losses.l1_loss(pred, y.to(dev))
+            assert loss.dtype == torch.float32
+            loss.backward()
+            grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+            assert {p.dtype for p in model.parameters()} == {torch.float32}
+            assert {g.dtype for g in grads.values()} == {torch.float32}
+            runs[label] = loss.item(), grads
+    finally:
+        set_policy("highest", None)
+    (card_loss, card), (cpu_loss, cpu), (_, f32) = (
+        runs[k] for k in ("card", "cpu", "cpu_f32"))
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    convs = {}
+    for k in cpu:
+        convs.setdefault(k.rsplit(".", 1)[0], []).append(k)
+    say("28b loss card, cpu (default + bf16), cpu float32",
+        [card_loss, cpu_loss, runs["cpu_f32"][0]])
+    say("28b loss card vs cpu relative", loss_rel)
+    out = {"loss_rel": loss_rel}
+    for label, got, want in (("card vs cpu", card, cpu),
+                             ("card vs cpu f32", card, f32),
+                             ("cpu vs cpu f32", cpu, f32)):
+        whole = rel_l2(got, want, list(want))
+        per = {c: rel_l2(got, want, ks) for c, ks in convs.items()}
+        worst = max(per, key=per.get)
+        say(f"28b gradient {label} relative L2: whole, worst conv, median "
+            "conv", f"{whole} {per[worst]} ({worst}) "
+            f"{statistics.median(per.values())}")
+        out[label] = (whole, per[worst], worst)
+    grad_rel, conv_rel, worst = out["card vs cpu"]
+    bounds = DTYPE_CHECK_BOUNDS
+    assert loss_rel <= bounds["loss_rel"], loss_rel
+    assert grad_rel <= bounds["grad_rel_l2"], grad_rel
+    assert conv_rel <= bounds["conv_rel_l2"], (worst, conv_rel)
+    return out
+
+
+def loss_trajectory(label, build, next_batch, steps=DTYPE_TRAJECTORY):
+    """``steps`` steps of a fresh ``build()`` (model, opt, step) from the
+    seed, on ``next_batch()``'s seeded batches: the losses, finite,
+    printed."""
+    from sstem_tpu_torch.train.trainer import TrainState
+
+    model, opt, step = build()
+    state, out = TrainState(model, opt), []
+    for _ in range(steps):
+        state, metrics = step(state, next_batch())
+        out.append(float(metrics["loss"]))
+    say(f"{label} loss trajectory ({steps} steps from the seed)", out)
+    assert all(np.isfinite(out)), (label, out)
+    return out
+
+
+def dtype_cells(root):
+    """28c: bench.py's two training cells under each DTYPE_SETTINGS entry,
+    in this call: the interp step (train_interp.build: IFNet K=51, 32 x
+    256^2 from the seed, L1, AdamW; sepconv 2 + 2 a step asserted) and the
+    unfolding step with device data generation (train_unfolding.build:
+    FusionNet ngf 32, batch 8 of 400^2 crops from a uint8 pool on the card,
+    degraded and cut to 256^2). Each: ms/step (median of DTYPE_STEPS after
+    DTYPE_WARM), peak memory, 2 profiled steps (idle share, device ms by
+    kind), then a DTYPE_TRAJECTORY-step loss trajectory from the seed."""
+    from sstem_tpu_torch.cli import train_interp, train_unfolding
+    from sstem_tpu_torch.compat.config import load_sff_config
+    from sstem_tpu_torch.data import synth_stack
+    from sstem_tpu_torch.train import device_datagen
+    from sstem_tpu_torch.train.trainer import TrainState
+
+    cfg_i = load_sff_config(write_interp_config(root, os.path.join(root, "x")))
+    cfg_u = load_sff_config(write_sff_train_config(
+        root, os.path.join(root, "x"), "unfold_28", {}))
+    g = torch.Generator().manual_seed(SEED)
+    batch = (torch.rand(TRAIN_BATCH, 6, TRAIN_PATCH, TRAIN_PATCH,
+                        generator=g).to(DEV),
+             torch.rand(TRAIN_BATCH, 1, TRAIN_PATCH, TRAIN_PATCH,
+                        generator=g).to(DEV))
+    # 16 (clean, interp) pairs of 512^2 from the seed
+    pool = synth_stack(2 * TRAININGSET_ROWS, TRAININGSET_SIZE,
+                       TRAININGSET_SIZE, seed=SEED).reshape(
+        TRAININGSET_ROWS, 2, TRAININGSET_SIZE, TRAININGSET_SIZE)
+
+    def interp_build():
+        model, opt, step, _, _, _ = train_interp.build(cfg_i, DEV, seed=SEED)
+        return model, opt, step
+
+    def unfold_build():
+        model, opt, _, _, _ = train_unfolding.build(cfg_u, DEV, SEED)
+        base = device_datagen.make_device_datagen_loss(
+            det_size=SFF_TRAIN_DET, seed=SEED)
+        step = device_datagen.make_pool_step(
+            base, pool, SFF_TRAIN_BATCH, SFF_TRAIN_CROP, DEV, seed=SEED)
+        return model, opt, step
+
+    def interp_batches():
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        return lambda: (
+            torch.rand(TRAIN_BATCH, 6, TRAIN_PATCH, TRAIN_PATCH, generator=gen,
+                       device=DEV),
+            torch.rand(TRAIN_BATCH, 1, TRAIN_PATCH, TRAIN_PATCH, generator=gen,
+                       device=DEV))
+
+    out = {}
+    try:
+        for cell, build, pixels, batches in (
+                ("interp", interp_build, TRAIN_BATCH * TRAIN_PATCH ** 2,
+                 lambda: (lambda: batch)),
+                ("unfolding", unfold_build,
+                 SFF_TRAIN_BATCH * SFF_TRAIN_DET ** 2,
+                 lambda: device_datagen.CounterProvider().next)):
+            for precision, dtype in DTYPE_SETTINGS:
+                set_policy(precision, dtype)
+                label = f"28c {cell} {policy_label(precision, dtype)}"
+                model, opt, step = build()
+                ms, per = time_train_step(label, step, TrainState(model, opt),
+                                          batches(), timed=DTYPE_STEPS,
+                                          warm=DTYPE_WARM, pixels=pixels)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                if cell == "interp":
+                    assert per == {"sepconv_fwd": 2, "sepconv_bwd": 2}, per
+                else:
+                    assert not per, per
+                assert {p.dtype for p in model.parameters()} == {torch.float32}
+                del model, opt, step
+                torch.cuda.empty_cache()
+                traj = loss_trajectory(
+                    label, build,
+                    interp_batches() if cell == "interp" else batches())
+                out[cell, precision, dtype] = {"ms": ms, "peak_GiB": peak,
+                                               "trajectory": traj,
+                                               "launches": per}
+                torch.cuda.empty_cache()
+            say(f"28c {cell} ms/step " + " / ".join(
+                policy_label(*k) for k in DTYPE_SETTINGS),
+                [out[cell, p, d]["ms"] for p, d in DTYPE_SETTINGS])
+    finally:
+        set_policy("highest", None)
+    return out
+
+
+def float32_only(payload):
+    """(floating tensors, of them float32) in a checkpoint's payload."""
+    tensors = []
+
+    def walk(v):
+        if torch.is_tensor(v):
+            if v.is_floating_point():
+                tensors.append(v)
+        elif isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+
+    walk(payload)
+    return len(tensors), sum(t.dtype == torch.float32 for t in tensors)
+
+
+def checkpoints_float32(label, root):
+    """Every model-*.ckpt under ``root`` holds float32 floating tensors
+    only. Returns the number of checkpoints."""
+    paths = [os.path.join(d, f) for d, _, files in os.walk(root)
+             for f in files if f.startswith("model-") and f.endswith(".ckpt")]
+    assert paths, (label, root)
+    for path in paths:
+        n, f32 = float32_only(torch.load(path, map_location="cpu",
+                                         weights_only=True))
+        assert n and f32 == n, (path, n, f32)
+    say(f"{label} checkpoints, all float32", len(paths))
+    return len(paths)
+
+
+def dtype_mains(root):
+    """28d: the six trainers' ``main`` for DTYPE_MAIN_STEPS steps each
+    under "default" + "bfloat16", set as a caller sets the policy before
+    an entry point, on trees of their own made from the seed: the SFF
+    chain on a triplet tree of TRAININGSET_ROWS x TRAININGSET_SIZE^2
+    (train_interp at phase 10's workload, infer_interp_trainingset -bs
+    TRAININGSET_BS behind its checkpoint, train_unfolding and train_fusion
+    with --device-datagen at bench.py:394-399's, the fusion run behind the
+    unfolding run's checkpoint), then the three SP trainers on an
+    SP_TRAIN_ROWS x SP_TRAIN_SIZE^2 quartet tree (the fusion run's vfi and
+    denoise branches pretrained from the first two). Launches asserted,
+    signatures checked (every sepconv bf16), checkpoints float32 only,
+    and the caller's compute dtype and precision unchanged after each
+    run. Returns each run's launches."""
+    from sstem_tpu_torch import config
+    from sstem_tpu_torch.cli import (
+        infer_interp_trainingset, train_fusion, train_interp,
+        train_sp_correction, train_sp_fusion, train_sp_interp, train_unfolding,
+    )
+    from sstem_tpu_torch.data import write_triplet_tree
+    from sstem_tpu_torch.data.synthetic import write_quartet_tree
+
+    steps, bf = DTYPE_MAIN_STEPS, ("bfloat16", "bfloat16")
+    data = os.path.join(root, "sff_data")
+    rows = write_triplet_tree(data, n_triplets=TRAININGSET_ROWS,
+                              size=TRAININGSET_SIZE, seed=SEED)
+    with open(os.path.join(data, "valid_data.txt"), "w") as f:
+        f.write("\n".join(rows[:2]) + "\n")
+    sp_data = os.path.join(root, "sp_data")
+    sp_txt = write_quartet_tree(sp_data, SP_TRAIN_ROWS, SP_TRAIN_SIZE,
+                                seed=SEED)
+    fwd_i, fwd_sp = ("sepconv", *BF16_TRAIN_SIG), ("sepconv", *BF16_SP_TRAIN_SIG)
+    bwd_i, bwd_sp = ("sepconv_bwd", *BF16_TRAIN_SIG), \
+        ("sepconv_bwd", *BF16_SP_TRAIN_SIG)
+    batches = -(-TRAININGSET_ROWS // TRAININGSET_BS)
+
+    def latest(name, models=os.path.join(root, "models")):
+        """The newest run directory of config ``name`` and its last
+        checkpoint."""
+        run = sorted(d for d in os.listdir(models) if d.endswith(name))[-1]
+        ckpt = sorted(f for f in os.listdir(os.path.join(models, run))
+                      if f.startswith("model-"))[-1]
+        return os.path.join(models, run), ckpt
+
+    launches = {}
+
+    def run(name, main, argv, want, maps):
+        _, sig = run_main(f"28d {name}", main, argv, want)
+        assert set(sig.maps) == maps, (name, sig.maps)
+        assert config.compute_dtype() is torch.bfloat16, name
+        assert config.matmul_precision() == "default", name
+        launches[name] = want
+
+    try:
+        set_policy("default", "bfloat16")
+        # 2 a step, 2 for the step-1 preview's crop and 2 for each of the
+        # two 512^2 validation images (phase 10)
+        cfg_i = write_interp_config(root, data)
+        run("train_interp", train_interp.main,
+            ["-c", cfg_i, "--max-iters", str(steps)],
+            {"sepconv_fwd": 2 * steps + 2 + 2 * 2, "sepconv_bwd": 2 * steps},
+            {fwd_i, bwd_i,
+             ("sepconv", 1, 1, TRAIN_PATCH, TRAIN_PATCH, K, *bf),
+             ("sepconv", 1, 1, TRAININGSET_SIZE, TRAININGSET_SIZE, K, *bf)})
+        interp_dir, interp_ckpt = latest("interp_k51_b32")
+        cfg_t = os.path.join(root, "trainingset.yaml")
+        with open(cfg_t, "w") as f:
+            f.write(f"TRAIN:\n  kernel_size: {K}\nTEST:\n  pad: 0\n"
+                    f"DATA:\n  folder_name: {data}\n"
+                    "  train_txt: train_data.txt\n")
+        run("infer_interp_trainingset", infer_interp_trainingset.main,
+            ["-c", cfg_t, "--ckpt", os.path.join(interp_dir, interp_ckpt),
+             "-bs", str(TRAININGSET_BS)],
+            {"sepconv_fwd": 2 * batches},
+            {("sepconv", TRAININGSET_BS, 1, TRAININGSET_SIZE,
+              TRAININGSET_SIZE, K, *bf)})
+        run("train_unfolding", train_unfolding.main,
+            ["-c", write_sff_train_config(root, data, "unfold_28", {}),
+             "--max-iters", str(steps), "--device-datagen"], {}, set())
+        flow_dir, flow_ckpt = latest("unfold_28")
+        # a warp a step
+        run("train_fusion", train_fusion.main,
+            ["-c", write_sff_train_config(
+                root, data, "fusion_28",
+                {"output_nc": 1, "flownet_path": flow_dir,
+                 "flownet_id": flow_ckpt}),
+             "--max-iters", str(steps), "--device-datagen"],
+            {"warp_bilinear": steps}, set())
+        # 4 forwards and 4 backwards a step, 4 forwards for the preview
+        sp_want = {"sepconv_fwd": 4 * steps + 4, "sepconv_bwd": 4 * steps}
+        run("train_sp_interp", train_sp_interp.main,
+            ["-opt", write_sp_train_config(root, sp_data, sp_txt, "sp_interp",
+                                           if_use_vfiImg=True),
+             "--max-iters", str(steps)], sp_want, {fwd_sp, bwd_sp})
+        run("train_sp_correction", train_sp_correction.main,
+            ["-opt", write_sp_train_config(root, sp_data, sp_txt,
+                                           "sp_correction"),
+             "--max-iters", str(steps)], {}, set())
+        pretrained = os.path.join(root, "sp_pretrained")
+        os.makedirs(pretrained)
+        os.symlink(run_dir(root, "sp_interp"), os.path.join(pretrained, "vfi"))
+        os.symlink(run_dir(root, "sp_correction"),
+                   os.path.join(pretrained, "denoise"))
+        run("train_sp_fusion", train_sp_fusion.main,
+            ["-opt", write_sp_train_config(
+                root, sp_data, sp_txt, "sp_fusion", mode="b",
+                vfi_lr_weight=1e-20, denoise_lr_weight=1e-6,
+                if_pretrained=True, resume_path=pretrained,
+                if_pretrained_vfi=True, if_pretrained_denoise=True,
+                vfi_last_iter=steps, denoise_last_iter=steps),
+             "--max-iters", str(steps)], sp_want, {fwd_sp, bwd_sp})
+    finally:
+        set_policy("highest", None)
+    checkpoints_float32("28d", root)
+    return launches
+
+
+def dtype_phase(gen):
+    """Phase 28: the bf16 training signatures' kernels timed (28a; phases
+    3 and 8 held both designs against the plain versions), the step card
+    vs CPU (28b), the two training cells under the three settings (28c),
+    the six trainers' mains under the policy (28d)."""
+    root = os.path.join(OUT, "compute_dtype")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {"times": {}}
+    t0 = time.perf_counter()
+    for sig in (BF16_TRAIN_SIG, BF16_SP_TRAIN_SIG):
+        n, hw = sig[0], sig[2]
+        out["times"][("fwd", sig)] = time_sepconv(*sig, gen, reps=20)
+        out["times"][("bwd", sig)] = time_sepconv_bwd(*sig, gen)
+        for kernel in ("fwd", "bwd"):
+            say_timing(f"sepconv_{kernel}[bf16 train {n}x1x{hw}^2]",
+                       out["times"][(kernel, sig)])
+    say("28a seconds", time.perf_counter() - t0)
+    os.makedirs(os.path.join(root, "mains"))
+    for step, fn, args in (("b", dtype_card_vs_cpu, ()),
+                           ("c", dtype_cells, (root,)),
+                           ("d", dtype_mains, (os.path.join(root, "mains"),))):
+        t0 = time.perf_counter()
+        out[step] = fn(*args)
+        say(f"28{step} seconds", time.perf_counter() - t0)
+    return out
+
+
+def dtype_kernel_entries(res, sep_err, bwd_err):
+    """JSON entries of phase 28: both sepconv kernels at the bf16 training
+    signatures, their launches over the trainers' main runs (28d)."""
+    entries = []
+    for sig, runs in ((BF16_TRAIN_SIG, ("train_interp",)),
+                      (BF16_SP_TRAIN_SIG, ("train_sp_interp",
+                                           "train_sp_fusion"))):
+        for kernel, err in (("fwd", sep_err), ("bwd", bwd_err)):
+            entries.append({
+                "name": f"sepconv_{kernel}[bf16 policy {'+'.join(runs)} "
+                        f"{sig[0]}x1x{sig[2]}x{sig[3]}]",
+                "route": "cuda",
+                "source": f"sstem_tpu_torch/csrc/sepconv_{kernel}.cu",
+                "replaces": ("sstem_tpu/kernels/sepconv.py:240" if kernel == "fwd"
+                             else "sstem_tpu/kernels/sepconv.py:287"),
+                "launches": sum(res["d"][r][f"sepconv_{kernel}"] for r in runs),
+                "max_abs_err": err[sig], **res["times"][(kernel, sig)]})
+    return entries
+
+
 def dtype_short(name):
     return {"float32": "f32", "bfloat16": "bf16"}[name]
 
@@ -4941,6 +5378,16 @@ def main():
     precision = precision_phase(gen, cpu_out)
     say("27 phase seconds", time.perf_counter() - t27)
     kernels += precision_kernel_entries(precision, sep_err, bwd_err, warp_err)
+
+    phase("28 the compute-dtype policy (config.set_compute_dtype): the "
+          "sepconv kernels at the bf16 training signatures, the IFNet step "
+          "card vs cpu under default + bfloat16, bench.py's interp and "
+          "unfolding cells under highest / default / default + bfloat16, "
+          "the six trainers' mains under the policy")
+    t28 = time.perf_counter()
+    dtype = dtype_phase(gen)
+    say("28 phase seconds", time.perf_counter() - t28)
+    kernels += dtype_kernel_entries(dtype, sep_err, bwd_err)
 
     kernels += new_kernel_entries(packed)
     kernels += sharded_kernel_entries(sharded, sep_err, warp_err,

@@ -108,7 +108,7 @@ def main(argv=None):
             t0 = time.time()
             out = pipe.restore(sff[None], interp[None])
             # the host pull waits for the device
-            pred = (out["fused"][0].cpu().numpy() * 255).astype(np.uint8)
+            pred = (out["fused"][0].float().cpu().numpy() * 255).astype(np.uint8)
             pred_time.append(time.time() - t0)
             stitch = (out["stitch"][0].cpu().numpy() * 255).astype(np.uint8)
             flow_np = out["flow"][0].cpu().numpy()

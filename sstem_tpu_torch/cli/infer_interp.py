@@ -89,7 +89,7 @@ def main(argv=None):
             img2 = np.array(Image.open(
                 os.path.join(img_path, str(k + 1).zfill(4) + ".png")))
             pred01 = pipe.interpolate(img1[None], img2[None],
-                                      clip=False)[0].cpu().numpy()
+                                      clip=False)[0].float().cpu().numpy()
             pred = (pred01 * 255).astype(np.uint8)
             Image.fromarray(pred).save(
                 os.path.join(output_path, str(k).zfill(4) + ".png"))

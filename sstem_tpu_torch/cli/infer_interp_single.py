@@ -53,7 +53,7 @@ def main(argv=None):
     img1 = np.array(Image.open(args.img1))
     img2 = np.array(Image.open(args.img2))
     pred = pipe.interpolate(img1[None], img2[None], clip=False)[0]
-    Image.fromarray((pred.cpu().numpy() * 255).astype(np.uint8)).save(
+    Image.fromarray((pred.float().cpu().numpy() * 255).astype(np.uint8)).save(
         args.output)
     print("saved", args.output)
 

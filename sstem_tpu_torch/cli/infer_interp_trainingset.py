@@ -55,7 +55,7 @@ def main(argv=None):
         chunk = rows[s:s + bs]
         img1 = np.stack([read(r[0]) for r in chunk])
         img3 = np.stack([read(r[2]) for r in chunk])
-        preds = pipe.interpolate(img1, img3, clip=False).cpu().numpy()
+        preds = pipe.interpolate(img1, img3, clip=False).float().cpu().numpy()
         for j in range(len(chunk)):
             name = os.path.join("interp_train_data", "%04d.png" % (s + j))
             Image.fromarray((preds[j] * 255).astype(np.uint8)).save(

@@ -82,7 +82,7 @@ def main(argv=None):
     start_iter = resume(model, opt, args.resume_torch, paths["save_path"])
 
     def preview_fn(st, batch, iters):
-        pred = eval_fn(batch["img_2_degra"][:1])[0, 0].cpu().numpy()
+        pred = eval_fn(batch["img_2_degra"][:1])[0, 0].float().cpu().numpy()
         save_collage(
             os.path.join(paths["cache_path"], "%06d.png" % iters),
             [[to_uint8(batch["img_2_degra"][0, 0].cpu().numpy()),

@@ -187,7 +187,7 @@ def main(argv=None):
         save_collage(
             os.path.join(paths["cache_path"], "%06d.png" % iters),
             [[to_uint8(batch["img_2_degra"][0, 0].cpu().numpy()),
-              to_uint8(p1[0, 0].cpu().numpy()),
+              to_uint8(p1[0, 0].float().cpu().numpy()),
               to_uint8(batch["img_2"][0, 0].cpu().numpy())]],
         )
 

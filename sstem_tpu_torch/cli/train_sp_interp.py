@@ -137,7 +137,7 @@ def main(argv=None):
     start_iter = resume(model, opt, args.resume_torch, paths["save_path"])
 
     def preview_fn(st, batch, iters):
-        pred = eval_fn(vfi_inputs(batch)[:1])[0].cpu().numpy()
+        pred = eval_fn(vfi_inputs(batch)[:1])[0].float().cpu().numpy()
         b = {k: batch[k][0, 0].cpu().numpy()
              for k in ("img_1", "img_2", "img_3", "img_4")}
         save_collage(

@@ -26,16 +26,36 @@ and ``infer_tiled``, the dry run and a spawned rank) therefore calls
 torch's flags: a fresh process computes float32 at ``"highest"`` unless its
 caller set a lower policy before.
 
-Two compute dtypes exist, as in the JAX package:
+The compute-dtype policy, with the JAX package's names
+(``set_compute_dtype``; ``None`` is the default): under ``"bfloat16"``
+every ``models/layers`` conv whose weights are float32 casts its input,
+weight and bias to bf16 inside autograd and returns bf16, as JAX's
+``Conv2dTorch`` and ``ConvTranspose2dTorch`` do, so the activations
+between convs are bf16 while the parameters, their gradients, the
+optimizer state and the checkpoints stay float32; BatchNorm computes its
+statistics in float32 and emits its input's dtype; IFNet pads its frames
+in bf16, so both sepconvs run on bf16 frames and bf16 tap maps. A loss
+of a bf16 prediction against a float32 target promotes to float32.
+VGG19 and the discriminators keep float32, as the JAX package's plain
+flax convs promote a bf16 input to their float32 parameters.
 
-  * ``PARITY_DTYPE`` (float32) — parity and quality work, under the policy.
-  * ``SERVING_DTYPE`` (bfloat16) — serving. Convolution weights and
-    activations are bf16; BatchNorm computes in float32 and emits bf16
-    (``models/layers.py``); the sepconv kernel accumulates in float32. A
-    module cast to bf16 and the fused-conv serving forwards do not read the
-    policy.
+The policy, the pipelines' ``dtype=`` and the precision compose so:
 
-The dtype is not global state: callers pass it to ``SFFPipeline``.
+  * a module whose conv weights are bf16 (``layers.cast_conv_weights``;
+    ``SFFPipeline(dtype=SERVING_DTYPE)`` and ``SPPipeline``'s bf16 path
+    cast theirs) runs in bf16 whatever the policy says, and the fused-conv
+    serving forwards do not read it;
+  * a float32 module follows the policy: under ``"bfloat16"`` its convs
+    run bf16 and return bf16, whatever the matmul precision (cuDNN
+    accumulates a bf16 conv in float32 at every one), which overrides the
+    ``"default"`` precision's single bf16 pass with its float32 result;
+    under ``None`` the precision alone decides;
+  * the pipelines' ``dtype=`` keeps its meaning: ``PARITY_DTYPE``
+    (float32) leaves the weights float32, so such a pipeline follows the
+    policy; ``SERVING_DTYPE`` (bfloat16) casts the conv weights.
+
+Entry points apply the precision and leave the compute dtype as the
+caller set it; a fresh process starts at ``None`` (float32 activations).
 """
 
 import torch
@@ -74,6 +94,24 @@ def apply_matmul_precision():
     # "high" and leave torch's two precision APIs disagreeing
     torch.set_float32_matmul_precision(_MATMUL_LEVELS[_PRECISION])
     torch.backends.cudnn.allow_tf32 = _PRECISION != "highest"
+
+
+_COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+# the layers and IFNet read this once per forward: None (float32
+# activations) or torch.bfloat16
+COMPUTE_DTYPE = None
+
+
+def set_compute_dtype(name):
+    """Set the activation dtype of float32 convs: ``None`` or ``"float32"``
+    (float32), or ``"bfloat16"``; another name raises KeyError."""
+    global COMPUTE_DTYPE
+    COMPUTE_DTYPE = _COMPUTE_DTYPES[name]
+
+
+def compute_dtype():
+    """``None`` (float32 activations) or ``torch.bfloat16``."""
+    return COMPUTE_DTYPE
 
 
 def disable_tf32():

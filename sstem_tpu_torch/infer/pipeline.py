@@ -40,7 +40,7 @@ from sstem_tpu_torch.config import (
 )
 from sstem_tpu_torch.infer.tiles import pad_to_multiple
 from sstem_tpu_torch.kernels import serving_warp
-from sstem_tpu_torch.models.layers import set_compute_dtype
+from sstem_tpu_torch.models.layers import cast_conv_weights
 from sstem_tpu_torch.models.serving import (
     fusionnet_serve,
     fusionnet_sp_serve,
@@ -127,7 +127,7 @@ class SFFPipeline:
             if m is not None:
                 m = m.to(self.device).eval()
                 if not packed_conv:
-                    m = set_compute_dtype(m, dtype)
+                    m = cast_conv_weights(m, dtype)
             models.append(m)
         self.interp_model, self.flow_model, self.fusion_model = models
 
@@ -475,14 +475,14 @@ class SPPipeline:
         apply_matmul_precision()
         self.device = torch.device(device)
         self.packed_conv = packed_conv
-        self.vfi_model = set_compute_dtype(vfi_model.to(self.device).eval(),
+        self.vfi_model = cast_conv_weights(vfi_model.to(self.device).eval(),
                                            dtype)
         nets = []
         for m in (denoise_model, fusion_model):
             if m is not None:
                 m = m.to(self.device).eval()
                 if not packed_conv:
-                    m = set_compute_dtype(m, dtype)
+                    m = cast_conv_weights(m, dtype)
             nets.append(m)
         self.denoise_model, self.fusion_model = nets
 

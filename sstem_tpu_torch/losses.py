@@ -93,7 +93,9 @@ MS_SSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 def ms_ssim(img1, img2, levels: int = 5, max_val: float = 255.0):
     """Reference ``MS_SSIM`` over NCHW images: the product of the first
     levels' contrast terms and the last level's SSIM, each to its weight."""
-    weights = torch.tensor(MS_SSIM_WEIGHTS[:levels], dtype=img1.dtype,
+    # float32 weights for a bf16 prediction, as jnp promotes them
+    weights = torch.tensor(MS_SSIM_WEIGHTS[:levels],
+                           dtype=torch.promote_types(img1.dtype, img2.dtype),
                            device=img1.device)
     msssim, mcs = [], []
     for _ in range(levels):

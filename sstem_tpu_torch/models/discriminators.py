@@ -20,7 +20,9 @@ port's other nets keep it (flax's BatchNorm in the JAX package keeps the
 biased one). Layers sit in ``nn.Sequential`` containers in the reference's
 order (``model`` in the first four, ``net`` in the pixel head);
 ``compat.weights.discriminator_state_dict_from_jax`` maps the JAX
-package's variables onto them. NCHW throughout.
+package's variables onto them. NCHW throughout. The convs keep float32
+under the bf16 compute dtype (``layers.float32_activations``), as the JAX
+package's plain flax convs promote a bf16 input to float32.
 """
 
 import random
@@ -56,7 +58,8 @@ class Discriminator(nn.Module):
         self.model = nn.Sequential(*_blocks(in_channels, (64, 128, 256)),
                                    nn.ZeroPad2d((1, 0, 1, 0)),
                                    _conv4(256, 1, 1))
-        layers.materialize(self, generator, layers.torch_default_)
+        layers.float32_activations(
+            layers.materialize(self, generator, layers.torch_default_))
 
     def forward(self, x):
         return self.model(x)
@@ -70,7 +73,8 @@ class Discriminator3(nn.Module):
         self.model = nn.Sequential(
             *_blocks(in_channels, (ngf, ngf * 2, ngf * 4)),
             _conv4(ngf * 4, 1, 1))
-        layers.materialize(self, generator, layers.torch_default_)
+        layers.float32_activations(
+            layers.materialize(self, generator, layers.torch_default_))
 
     def forward(self, x):
         return self.model(x)
@@ -102,7 +106,8 @@ class NLayerDiscriminator(nn.Module):
                      _batchnorm(ndf * nf), nn.LeakyReLU(0.2)]
         mods.append(_conv4(ndf * nf, 1, 1))
         self.model = nn.Sequential(*mods)
-        layers.materialize(self, generator, layers.torch_default_)
+        layers.float32_activations(
+            layers.materialize(self, generator, layers.torch_default_))
 
     def forward(self, x):
         return self.model(x)
@@ -118,7 +123,8 @@ class PixelDiscriminator(nn.Module):
             layers.Conv2d(ndf, ndf * 2, 1, bias=False, device="meta"),
             _batchnorm(ndf * 2), nn.LeakyReLU(0.2),
             layers.Conv2d(ndf * 2, 1, 1, bias=False, device="meta"))
-        layers.materialize(self, generator, layers.torch_default_)
+        layers.float32_activations(
+            layers.materialize(self, generator, layers.torch_default_))
 
     def forward(self, x):
         return self.net(x)

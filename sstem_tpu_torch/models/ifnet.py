@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sstem_tpu_torch import config
 from sstem_tpu_torch.kernels import sepconv_planar
 from sstem_tpu_torch.models.layers import conv3x3, materialize, orthogonal_relu_
 from sstem_tpu_torch.ops import replication_pad_2d, upsample_bilinear_align_corners
@@ -100,8 +101,12 @@ class IFNet(nn.Module):
         x = self.upconv64(self.upsamp128(x) + x128)
         x = self.upsamp64(x) + x64
 
-        # the padded frames travel in the compute dtype, as the tap maps do
+        # the padded frames travel in the dtype of the tap maps: the conv
+        # weights', or with float32 weights the bf16 compute dtype where set
+        # (the JAX planar path casts its frames to it)
         cdt = self.conv32[0].weight.dtype
+        if cdt == torch.float32 and config.COMPUTE_DTYPE is not None:
+            cdt = config.COMPUTE_DTYPE
         pad = self.kernel_size // 2
         p1 = replication_pad_2d(i1, pad).to(cdt)
         p2 = replication_pad_2d(i2, pad).to(cdt)

@@ -2,14 +2,25 @@
 
 Conv2d(k3 s1 p1), ConvTranspose2d(k3 s2 p1 op1) and BatchNorm2d are PyTorch's
 own; BatchNorm2d's running variance is already the unbiased one. The
-subclasses here only add the numerical policy of ``config.py``: a conv
-runs in its weight's dtype and casts its input on entry (as JAX's
-``Conv2dTorch`` casts to ``compute_dtype()``), except that under the
-``"default"`` matmul precision a conv with float32 weights runs one bf16
-pass (input and weight cast to bf16, the result back to float32, the bias
-added in float32: JAX's ``Precision.DEFAULT``); BatchNorm normalises in
-its parameters' dtype (float32; float64 for a model cast whole, as the
-training-parity tests run it) and emits its input's dtype.
+subclasses here only add the numerical policies of ``config.py``. A conv
+runs in its weight's dtype and casts its input on entry, except with
+float32 weights:
+
+  * under the bf16 compute dtype (``config.set_compute_dtype``) it casts
+    input, weight and bias to bf16 and returns bf16, as JAX's
+    ``Conv2dTorch`` and ``ConvTranspose2dTorch`` cast to
+    ``compute_dtype()``; the casts sit inside autograd, so the gradients
+    reach the float32 parameters in float32. A conv marked by
+    ``float32_activations`` (VGG19, the discriminators: plain flax convs in
+    the JAX package) keeps float32;
+  * else, under the ``"default"`` matmul precision, it runs one bf16 pass
+    (input and weight cast to bf16, the result back to float32, the bias
+    added in float32: JAX's ``Precision.DEFAULT``).
+
+BatchNorm normalises in its parameters' dtype (float32; float64 for a model
+cast whole, as the training-parity tests run it) and emits its input's
+dtype: under the bf16 compute dtype, statistics in float32, running
+statistics float32, output bf16.
 
 Layers are created on the meta device and materialised by ``materialize``,
 which draws every initial value from an explicit ``torch.Generator``:
@@ -32,9 +43,15 @@ from torch import nn
 from sstem_tpu_torch import config
 
 
-def _bf16_pass(w):
-    """Whether a conv with weight ``w`` runs the single bf16 pass."""
-    return config.BF16_PASS and w.dtype == torch.float32
+def _mode(conv, w):
+    """How a conv with weight ``w`` runs: ``"compute_dtype"`` (the bf16
+    compute dtype), ``"bf16_pass"`` (the "default" precision's single
+    pass) or None (in the weight's dtype)."""
+    if w.dtype != torch.float32:
+        return None
+    if config.COMPUTE_DTYPE is not None and conv.follows_compute_dtype:
+        return "compute_dtype"
+    return "bf16_pass" if config.BF16_PASS else None
 
 
 def _float32(y, bias):
@@ -45,28 +62,42 @@ def _float32(y, bias):
     return y if bias is None else y + bias[None, :, None, None]
 
 
+def _bf16(t):
+    return None if t is None else t.to(torch.bfloat16)
+
+
 class Conv2d(nn.Conv2d):
+    follows_compute_dtype = True
+
     def forward(self, x):
         w = self.weight
-        if _bf16_pass(w):
-            y = self._conv_forward(x.to(torch.bfloat16), w.to(torch.bfloat16),
-                                   None)
+        mode = _mode(self, w)
+        if mode == "compute_dtype":
+            # NCHW-contiguous, as the float32 conv returns it (see _float32)
+            return self._conv_forward(_bf16(x), _bf16(w),
+                                      _bf16(self.bias)).contiguous()
+        if mode == "bf16_pass":
+            y = self._conv_forward(_bf16(x), _bf16(w), None)
             return _float32(y, self.bias)
         return super().forward(x.to(w.dtype))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
+    follows_compute_dtype = True
+
     def forward(self, x, output_size=None):
         w = self.weight
-        if _bf16_pass(w):
-            op = self._output_padding(x, output_size, self.stride,
-                                      self.padding, self.kernel_size, 2,
-                                      self.dilation)
-            y = F.conv_transpose2d(
-                x.to(torch.bfloat16), w.to(torch.bfloat16), None, self.stride,
-                self.padding, op, self.groups, self.dilation)
-            return _float32(y, self.bias)
-        return super().forward(x.to(w.dtype), output_size)
+        mode = _mode(self, w)
+        if mode is None:
+            return super().forward(x.to(w.dtype), output_size)
+        op = self._output_padding(x, output_size, self.stride, self.padding,
+                                  self.kernel_size, 2, self.dilation)
+        bias = _bf16(self.bias) if mode == "compute_dtype" else None
+        y = F.conv_transpose2d(_bf16(x), _bf16(w), bias, self.stride,
+                               self.padding, op, self.groups, self.dilation)
+        if mode == "compute_dtype":
+            return y.contiguous()
+        return _float32(y, self.bias)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -144,9 +175,22 @@ def materialize(module, generator, conv_weight_init, bn_weight_std=0.0):
     return module
 
 
-def set_compute_dtype(module, dtype):
-    """Cast conv weights to ``dtype``; BatchNorm parameters stay float32."""
+def cast_conv_weights(module, dtype):
+    """Cast conv weights to ``dtype``; BatchNorm parameters stay float32.
+    A conv with bf16 weights runs in bf16 whatever ``config``'s compute
+    dtype says (the pipelines' ``dtype=``)."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             m.to(dtype)
+    return module
+
+
+def float32_activations(module):
+    """Keep ``module``'s convs out of the bf16 compute dtype: they cast a
+    bf16 input to their float32 weights, as the JAX package's plain flax
+    ``nn.Conv`` (VGG19, the discriminators) promotes it to its float32
+    parameters. The ``"default"`` precision's bf16 pass still applies."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d)):
+            m.follows_compute_dtype = False
     return module

@@ -10,6 +10,10 @@ conv5_1 and returns those five. Its layers sit at torchvision's indices in
 published ``vgg19-dcbb9e9d.pth`` loads through
 ``load_torch_vgg19_features`` as it is.
 
+Its convs keep float32 under the bf16 compute dtype
+(``layers.float32_activations``), as the JAX package's flax ``nn.Conv``
+promotes a bf16 prediction to its float32 parameters.
+
 No input normalisation: the reference feeds raw [0, 1] gray images repeated
 to 3 channels (main_ms.py:195-198). The extractor is frozen where the loss
 uses it (``cli/_sff.load_vgg_apply``: eval mode, no parameter takes a
@@ -49,7 +53,8 @@ class VGG19Features(nn.Module):
                 mods += [layers.conv3x3(cin, v), nn.ReLU()]
                 cin = v
         self.features = nn.Sequential(*mods)
-        layers.materialize(self, generator, layers.torch_default_)
+        layers.float32_activations(
+            layers.materialize(self, generator, layers.torch_default_))
 
     def forward(self, x):
         out = {}

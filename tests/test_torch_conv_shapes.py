@@ -310,6 +310,43 @@ def test_sp_training_signatures_are_checked_on_the_card(smoke):
     assert sepconv.design(smoke.SP_TRAIN_SIG[3]) == "blocked"
 
 
+@pytest.mark.parametrize("n_frames", [1, 2])
+def test_bf16_policy_training_signatures_are_checked_on_the_card(smoke,
+                                                                 n_frames):
+    """Under the bf16 compute dtype (``config.set_compute_dtype``, phase
+    28) one L1 step of IFNet(51) (the interp trainer's, and the two-frame
+    net of the SP interp and fusion trainers) on a 32^2 crop, scaled to
+    the trainers' batches and crops, runs its sepconvs forward and backward
+    at BF16_TRAIN_SIG and BF16_SP_TRAIN_SIG: bf16 frames and tap maps,
+    held in SEPCONV_CHECKS and SEPCONV_BWD_CHECKS (phases 3 and 8) on the
+    blocked designs."""
+    from sstem_tpu_torch import losses
+
+    with skip_init():
+        model = _zeroed(IFNet(smoke.K, n_frames=n_frames))
+    prior = config.compute_dtype()
+    config.set_compute_dtype("bfloat16")
+    try:
+        with smoke.KernelSignatures() as sig:
+            losses.l1_loss(model(torch.zeros(1, 6, 32, 32)),
+                           torch.ones(1, n_frames, 32, 32)).backward()
+    finally:
+        config.COMPUTE_DTYPE = prior
+    batch, patch, want = ((smoke.TRAIN_BATCH, smoke.TRAIN_PATCH,
+                           smoke.BF16_TRAIN_SIG) if n_frames == 1 else
+                          (smoke.SP_TRAIN_BATCH, smoke.SP_TRAIN_PATCH,
+                           smoke.BF16_SP_TRAIN_SIG))
+    for kernel in ("sepconv", "sepconv_bwd"):
+        calls = {k: n for k, n in sig.maps.items() if k[0] == kernel}
+        assert sum(calls.values()) == 2 * n_frames, calls
+        full = {(k[1] * batch, k[2], k[3] * patch // 32, k[4] * patch // 32,
+                 *k[5:]) for k in calls}
+        assert full == {want}, full
+        assert (kernel, *want) in smoke.MAP_CHECKS
+    assert want[5:] == ("bfloat16", "bfloat16")
+    assert sepconv.design(want[3]) == "blocked"
+
+
 def test_recorded_backward_launch_is_counted_once(smoke, monkeypatch):
     """A backward launch on the card, recorded by KernelSignatures, still
     counts once in sepconv_planar_bwd.launches (phase 10 asserts 2 a step):

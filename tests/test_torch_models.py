@@ -31,7 +31,7 @@ from sstem_tpu_torch.compat import (
     unet_sff_state_dict_from_jax,
 )
 from sstem_tpu_torch.models import FusionNet, UNetSFF
-from sstem_tpu_torch.models.layers import set_compute_dtype
+from sstem_tpu_torch.models.layers import cast_conv_weights
 
 from _torch_port import port_module, sff_variables
 
@@ -141,7 +141,7 @@ def test_bf16_compute_keeps_batchnorm_in_float32():
     x = torch.rand(1, 6, 32, 32, generator=torch.Generator().manual_seed(6))
     with torch.inference_mode():
         want = model(x)
-        set_compute_dtype(model, torch.bfloat16)
+        cast_conv_weights(model, torch.bfloat16)
         got = model(x)
     assert model.down_1.conv_1[0].weight.dtype == torch.bfloat16
     assert model.down_1.conv_1[1].weight.dtype == torch.float32

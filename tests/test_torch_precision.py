@@ -35,9 +35,10 @@ def tf32_flags():
 
 @pytest.fixture(autouse=True)
 def restore_policy():
-    saved = config.matmul_precision(), tf32_flags()
+    saved = config.matmul_precision(), tf32_flags(), config.compute_dtype()
     yield
     config.set_matmul_precision(saved[0])
+    config.COMPUTE_DTYPE = saved[2]
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
         saved[1]
 
@@ -106,8 +107,10 @@ def test_entry_point_turns_tf32_off(entry, tmp_path):
 @pytest.mark.parametrize("trainer", [n for n in CLIS if n.startswith("train")])
 def test_trainer_keeps_the_callers_policy(trainer, tmp_path):
     config.set_matmul_precision("default")
+    config.set_compute_dtype("bfloat16")
     cli_argument_path(trainer, tmp_path)
     assert config.matmul_precision() == "default"
+    assert config.compute_dtype() is torch.bfloat16
     assert config.BF16_PASS
     assert torch.backends.cudnn.allow_tf32
     assert torch.get_float32_matmul_precision() == "medium"

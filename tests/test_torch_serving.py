@@ -59,7 +59,7 @@ from sstem_tpu_torch.kernels import (
     head_tail,
     pool2x,
 )
-from sstem_tpu_torch.models.layers import set_compute_dtype, skip_init
+from sstem_tpu_torch.models.layers import cast_conv_weights, skip_init
 from sstem_tpu_torch.models.serving import (
     fold_gray_pair_conv,
     fusionnet_serve,
@@ -217,7 +217,7 @@ SERVE = {"ifnet": ifnet_serve, "fusionnet": fusionnet_serve,
 def test_serve_matches_bf16_module(modules, name):
     x2, x6 = _pair_inputs(1)
     model = modules[name]
-    module_bf16 = set_compute_dtype(copy.deepcopy(model), BF)
+    module_bf16 = cast_conv_weights(copy.deepcopy(model), BF)
     with torch.inference_mode():
         got = SERVE[name](model, x2).float()
         want = module_bf16(x6.permute(0, 3, 1, 2)).float().permute(0, 2, 3, 1)
