@@ -204,6 +204,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``main`` for 3 steps each under the policy: launches asserted,
      signatures checked, checkpoints float32 only, the compute dtype
      still bfloat16 afterwards
+ 29. the on-card tools and the batched head tail: (a)
+     ``tools.gpu_checks.run_checks()`` (the JAX tools/tpu_checks.py cases:
+     each kernel against its plain version on the card), every case
+     printed, all within tolerance, GPU_CHECKS.json written, every counted
+     kernel launched; (b) the six profilers' functions (profile_pipeline,
+     profile_serve, profile_fine, ifnet_prefix_bench, micro_conv_bench,
+     bench_conv3x3) at their tools' full-width shapes with fewer calls
+     (PROFILER_CALLS), every row printed; (c) the packed restore with
+     ``batched_head_tail=True`` card vs CPU at phase 13's bounds, then
+     phase 14's workload on the unfused, fused and batched tails in turn
+     (launches per group asserted, signatures checked, ms/section, peak
+     memory); (d) ``tools.verify_drive.main`` in process, exit 0 asserted
 
 Every number is printed on its own line beside the card's name and power
 limit. The line before the last is the kernels' JSON summary; the last line
@@ -358,7 +370,8 @@ def build_pipeline(device, dtype, seed=SEED, kernel_size=K, **options):
     """SFFPipeline on seeded random weights. The kernel heads' last conv is
     rescaled so each frame's taps sum to about 1/sqrt(2), as a trained KPN's
     do; otherwise the interp saturates at the clip and hides the sepconv.
-    ``options`` go to SFFPipeline (packed_conv, fused_head_tail)."""
+    ``options`` go to SFFPipeline (packed_conv, fused_head_tail,
+    batched_head_tail)."""
     from sstem_tpu_torch.infer.pipeline import SFFPipeline
     from sstem_tpu_torch.models import FusionNet, IFNet, UNetSFF
 
@@ -403,6 +416,10 @@ PATH_LAUNCHES = {
     "packed_fused_tail": {"sepconv_fwd": 2, "warp_bilinear": 1,
                           "conv3x3_fused": 50, "pool2x": 3,
                           "deconv2x_fused": 4, "head_tail": 4},
+    # the four head tails in one cuDNN upsample and grouped conv (phase 29)
+    "packed_batched_tail": {"sepconv_fwd": 2, "warp_bilinear": 1,
+                            "conv3x3_fused": 50, "pool2x": 3,
+                            "deconv2x_fused": 4},
 }
 
 
@@ -4911,6 +4928,136 @@ def dtype_phase(gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the on-card tools and the batched head tail
+# ---------------------------------------------------------------------------
+
+# each profiler at its tool's default full-width shapes, with fewer calls
+# than the tool's own (the phase's time)
+PROFILER_CALLS = {"profile_pipeline": dict(iters=3, warm=2),
+                  "profile_serve": dict(iters=3, warm=2),
+                  "profile_fine": dict(iters=3, warm=2),
+                  "ifnet_prefix_bench": dict(iters=3, warm=1),
+                  "micro_conv_bench": dict(iters=3, warm=2),
+                  "bench_conv3x3": dict(iters=5, warm=3)}
+# the batched tail's path beside the two it joins, in one call
+TAIL_PATHS = (("packed", {}), ("packed_fused_tail", {"fused_head_tail": True}),
+              ("packed_batched_tail", {"batched_head_tail": True}))
+
+
+def tools_phase():
+    """Phase 29: (a) ``gpu_checks.run_checks()`` (every case printed, all
+    ok asserted, GPU_CHECKS.json under build/chip_smoke/, each counted
+    kernel launched); (b) each profiler's function at its tool's
+    full-width shapes (PROFILER_CALLS); (c) the packed restore with
+    ``batched_head_tail=True`` card vs CPU at phase 13's bounds, then at
+    phase 14's workload beside the unfused and fused tails (launches per
+    group asserted, ms/section); (d) ``verify_drive.main`` in process, exit
+    0 asserted. Returns the batched path's launches by kernel."""
+    import importlib
+
+    from sstem_tpu_torch import config
+    from sstem_tpu_torch.data import synth_stack
+    from sstem_tpu_torch.tools import gpu_checks, verify_drive
+
+    phase("29a gpu_checks: the kernels against their plain versions at the "
+          "JAX tool's cases")
+    t0 = time.perf_counter()
+    wrappers = counted_kernels()
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = gpu_checks.run_checks()
+    for name, case in res.items():
+        if isinstance(case, dict):
+            say(f"29a gpu_checks {name} max_abs_err (tol {case['tol']}, "
+                f"ok {case['ok']})", case["max_abs_err"])
+    say("29a gpu_checks all_ok", res["all_ok"])
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "GPU_CHECKS.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    for kernel, fn in wrappers.items():
+        say(f"29a gpu_checks {kernel} launches", fn.launches)
+        assert fn.launches > 0, f"gpu_checks launched no {kernel}"
+    assert res["all_ok"], [k for k, v in res.items()
+                           if isinstance(v, dict) and not v["ok"]]
+    say("29a seconds", time.perf_counter() - t0)
+
+    phase("29b the profilers at their full-width shapes")
+    for tool, kwargs in PROFILER_CALLS.items():
+        t0 = time.perf_counter()
+        module = importlib.import_module(f"sstem_tpu_torch.tools.{tool}")
+        rows = getattr(module, tool)(**kwargs)
+        for row, value in rows.items():
+            for key, v in (value.items() if isinstance(value, dict)
+                           else (("ms", value),)):
+                assert np.isfinite(v), (tool, row, key, v)
+                say(f"29b {tool} {row.strip()} {key}", v)
+        say(f"29b {tool} seconds", time.perf_counter() - t0)
+
+    phase("29c the batched head tail: packed card vs cpu (K=51, bfloat16, "
+          "150 x 170), then 25 x 1250^2, 12 sections, chunk 4, beside the "
+          "unfused and fused tails")
+    bf16 = config.SERVING_DTYPE
+    small = synth_stack(5, 150, 170, seed=0)
+    x3 = group_input(small, [1, 3])
+    secs, outs = [], []
+    for dev in (DEV, "cpu"):
+        pipe = build_pipeline(dev, bf16, packed_conv=True,
+                              batched_head_tail=True)
+        secs.append(pipe.section(x3.to(dev)))
+        outs.append(pipe.restore_stack_scanned(small, [1, 3]))
+    compare_packed(secs[0], secs[1], outs[0], outs[1], [1, 3])
+    del pipe, secs, outs
+    stack = synth_stack(25, 1250, 1250, seed=0)
+    ids = list(range(1, 24, 2))
+    runs = {path: full_size_run(stack, ids, bf16, path, packed_conv=True,
+                                **options)
+            for path, options in TAIL_PATHS}
+    for path, (_, ms, _) in runs.items():
+        say(f"29c full bfloat16 {path} ms_per_section, this phase", ms)
+    del stack
+
+    phase("29d verify_drive")
+    t0 = time.perf_counter()
+    assert verify_drive.main([]) == 0, "VERIFY FAIL"
+    say("29d seconds", time.perf_counter() - t0)
+    return runs["packed_batched_tail"][0]
+
+
+def batched_kernel_entries(launches, packed, times, sep_err, warp_err):
+    """JSON entries of phase 29's batched-tail path: its conv3x3, deconv and
+    pool at phase 15's timed shapes (the packed path's signatures, which
+    this path launches too), its sepconv at phase 7's 4 x 1 x 1280^2 bf16
+    and its warp at 4 x 1280^2; launches are the kernel's in the path's
+    checked run."""
+    entries = []
+    for kernel, source, replaces, _ in NEW_KERNELS:
+        for name, t in packed["times"].items():
+            if name.split("[")[0] == kernel and launches[kernel]:
+                entries.append({
+                    "name": name.replace("[", "[batched tail ", 1),
+                    "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": launches[kernel],
+                    "max_abs_err": packed["err"][kernel], **t})
+    bf16_sig = (4, 1, 1280, 1280, K, "bfloat16", "bfloat16")
+    entries.append({
+        "name": "sepconv_fwd[batched tail 4x1x1280^2 bf16]", "route": "cuda",
+        "source": "sstem_tpu_torch/csrc/sepconv_fwd.cu",
+        "replaces": "sstem_tpu/kernels/sepconv.py:240",
+        "launches": launches["sepconv_fwd"], "max_abs_err": sep_err[bf16_sig],
+        **times["sepconv_bf16"]})
+    ms, plain = times["warp"]
+    entries.append({
+        "name": "warp_bilinear[batched tail 4x1280x1280]", "route": "cuda",
+        "source": "sstem_tpu_torch/csrc/warp_bilinear.cu",
+        "replaces": "sstem_tpu/kernels/warp_band.py:64",
+        "launches": launches["warp_bilinear"],
+        "max_abs_err": warp_err[(4, 1280, 1280)], "ms": ms, "plain_ms": plain,
+        "bound_ms": 4 * 1280 * 1280 * (4 + 8 + 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None})
+    return entries
+
+
 def dtype_kernel_entries(res, sep_err, bwd_err):
     """JSON entries of phase 28: both sepconv kernels at the bf16 training
     signatures, their launches over the trainers' main runs (28d)."""
@@ -5388,6 +5535,14 @@ def main():
     dtype = dtype_phase(gen)
     say("28 phase seconds", time.perf_counter() - t28)
     kernels += dtype_kernel_entries(dtype, sep_err, bwd_err)
+
+    phase("29 the on-card tools (gpu_checks, the six profilers, verify_drive) "
+          "and the batched head tail")
+    t29 = time.perf_counter()
+    batched = tools_phase()
+    say("29 phase seconds", time.perf_counter() - t29)
+    kernels += batched_kernel_entries(batched, packed, times, sep_err,
+                                      warp_err)
 
     kernels += new_kernel_entries(packed)
     kernels += sharded_kernel_entries(sharded, sep_err, warp_err,

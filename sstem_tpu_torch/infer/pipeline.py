@@ -98,17 +98,22 @@ class SFFPipeline:
       fused_head_tail: with ``packed_conv``, run the IFNet head tails on the
         ``head_tail`` kernel (the JAX ``SSTEM_FUSED_HEAD_TAIL=1``) instead of
         cuDNN's upsample and conv.
+      batched_head_tail: with ``packed_conv``, run the four head tails as one
+        cuDNN upsample and one grouped conv3 (the JAX
+        ``SSTEM_BATCHED_HEAD_TAIL=1``; ``models.serving.ifnet_serve``).
+        ``fused_head_tail`` wins where both are set, as in JAX.
     """
 
     def __init__(self, interp_model, flow_model, fusion_model, device,
                  dtype=PARITY_DTYPE, pad=0, packed_conv=False,
-                 fused_head_tail=False):
+                 fused_head_tail=False, batched_head_tail=False):
         if packed_conv and dtype != SERVING_DTYPE:
             raise ValueError(
                 f"packed_conv=True serves bfloat16 only (the JAX package has "
                 f"no float32 packed path); got dtype={dtype}")
-        if fused_head_tail and not packed_conv:
-            raise ValueError("fused_head_tail needs packed_conv=True")
+        if (fused_head_tail or batched_head_tail) and not packed_conv:
+            raise ValueError("fused_head_tail and batched_head_tail need "
+                             "packed_conv=True")
         apply_matmul_precision()
         ngf = None if flow_model is None else \
             flow_model.down_1.conv_1[0].out_channels
@@ -117,11 +122,12 @@ class SFFPipeline:
                 "SFFPipeline: packed_conv=True serves the reference FusionNet "
                 "width 32; this flow model is %d wide, so the pipeline runs "
                 "on the cuDNN path", ngf)
-            packed_conv = fused_head_tail = False
+            packed_conv = fused_head_tail = batched_head_tail = False
         self.device = torch.device(device)
         self.pad = pad
         self.packed_conv = packed_conv
         self.fused_head_tail = fused_head_tail
+        self.batched_head_tail = batched_head_tail
         models = []
         for m in (interp_model, flow_model, fusion_model):
             if m is not None:
@@ -146,7 +152,8 @@ class SFFPipeline:
         """Packed path: IFNet on an (N, H, W, 2) [prev, next] pair in 0..1 ->
         (N, H, W) float32."""
         return ifnet_serve(self.interp_model, x2,
-                           fused_head_tail=self.fused_head_tail)[..., 0]
+                           fused_head_tail=self.fused_head_tail,
+                           batched_head_tail=self.batched_head_tail)[..., 0]
 
     def _restore_packed(self, x2):
         """Packed path: (N, H, W, 2) [degraded, interp] -> (pred (N, H, W),

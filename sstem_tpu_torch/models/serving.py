@@ -15,7 +15,9 @@ and library ops is the JAX package's:
     eval BatchNorm, bias, residual and activation in the epilogue),
     ``pool2x`` (the first pool of each net), ``deconv2x_fused`` (the two
     finest transposed convs of FusionNet and UNetSFF) and, with
-    ``fused_head_tail``, ``head_tail``;
+    ``fused_head_tail``, ``head_tail``; the JAX batched head tail
+    (``SSTEM_BATCHED_HEAD_TAIL=1``) is an XLA grouped conv, and its
+    counterpart, ``batched_head_tail``, a cuDNN grouped conv;
   * where it stays on XLA, this one stays on cuDNN with the same rounding
     points: a bf16 conv plus a bf16 bias add (``_conv_eval``), BatchNorm's
     affine in float32 rounded to bf16 (``_bn_eval``), bf16 activations.
@@ -477,7 +479,7 @@ def fusionnet_sp_serve(model, x1, x2):
 # IFNet (kernel-prediction net: the SFF net, one frame; the SP net, two)
 # ---------------------------------------------------------------------------
 
-def _ifnet_args(model, fused_head_tail):
+def _ifnet_args(model, tail):
     def module(seq, conv=_kconv):
         return [conv(seq[i]) for i in (0, 2, 4)]
 
@@ -491,61 +493,39 @@ def _ifnet_args(model, fused_head_tail):
         p[name] = xla_module(getattr(model, name))
     for name in ("upsamp512", "upsamp256", "upsamp128"):
         p[name] = _xconv(getattr(model, name)[1])
-    for name in (n for frame in HEADS[model.n_frames] for n in frame):
+    names = [n for frame in HEADS[model.n_frames] for n in frame]
+    fused = tail == "fused"
+    for name in names:
         head = getattr(model, name)
-        k = head[7].out_channels
         # the fused tail reads 64-channel features whose channels >= K are
         # exactly zero (zero weights and bias, relu(0) == 0), as the JAX
         # forward's full64 head does
         convs = [_kconv(head[0]), _kconv(head[2]),
-                 _kconv(head[4], cout_pad=64 if fused_head_tail else None)]
-        if fused_head_tail:
-            tail = (head[7].weight.permute(2, 3, 1, 0).to(_BF).contiguous(),
-                    head[7].bias.float().contiguous())
+                 _kconv(head[4], cout_pad=64 if fused else None)]
+        if fused:
+            conv3 = (head[7].weight.permute(2, 3, 1, 0).to(_BF).contiguous(),
+                     head[7].bias.float().contiguous())
         else:
-            tail = (head[7].weight.to(_BF).contiguous(), head[7].bias.to(_BF))
-        p[name] = (convs, tail, k)
+            conv3 = (head[7].weight.to(_BF).contiguous(), head[7].bias.to(_BF))
+        p[name] = (convs, conv3)
+    if tail == "batched":
+        # group g of the grouped conv3 reads and writes channels
+        # [g*K, (g+1)*K]: every head's (K, K, 3, 3) weight, stacked
+        p["batched"] = (torch.cat([p[n][1][0] for n in names]),
+                        torch.cat([p[n][1][1] for n in names]))
     return p
 
 
-def ifnet_serve(model, x, n_frames=1, assume_gray=True,
-                fused_head_tail=False):
-    """Eval IFNet forward in bf16: the conv32 and conv64 modules, upsamp64's
-    conv and the head convs 0-2 on the conv kernel, the first avg pool on
-    the pool kernel, the levels below on cuDNN, then each head's tail
-    (align-corners 2x upsample + conv3) and two sepconvs per frame.
+def _ifnet_prepared(model, fold, tail_form):
+    """``ifnet_serve``'s prepared weights: ``fold`` for the 2-channel gray
+    pair, ``tail_form`` 'cudnn', 'fused' or 'batched'."""
+    return _prepared(model, ("ifnet", fold, tail_form), lambda m: _ifnet_args(
+        _with_folded_first_conv(m, ("conv32", "0")) if fold else m, tail_form))
 
-    Args:
-      model: the port's ``IFNet`` with ``n_frames`` frames.
-      x: (N, H, W, 6) two replicated-gray frames (or, with ``assume_gray``
-        False, two 3-channel frames), or the (N, H, W, 2) gray pair; H and
-        W multiples of 32; values in 0..1.
-      n_frames: 1 (the SFF net, four heads) or 2 (the SP net, four heads a
-        frame, read per frame as k2h, k2v, k1h, k1v: ``models.ifnet.HEADS``).
-      assume_gray: the frames are gray, so each sepconv runs on one
-        channel. False takes the 6-channel input's frames as 3 channels
-        each, runs each sepconv on 3 channels and returns their mean.
-      fused_head_tail: the head tails on the ``head_tail`` kernel instead of
-        cuDNN's upsample and conv (the JAX ``SSTEM_FUSED_HEAD_TAIL=1``).
 
-    Returns:
-      (N, H, W, n_frames) float32, one channel per frame.
-    """
-    if n_frames != model.n_frames:
-        raise ValueError(f"ifnet_serve: n_frames={n_frames} but the model "
-                         f"has {model.n_frames}")
-    fold = x.shape[-1] == 2
-    if fold and not assume_gray:
-        raise ValueError("ifnet_serve: a 2-channel input is a gray pair; "
-                         "assume_gray=False takes the 6-channel input")
-    i1 = x[..., 0:1] if fold else x[..., 0:3]
-    i2 = x[..., 1:2] if fold else x[..., 3:6]
-    if assume_gray:
-        i1, i2 = i1[..., 0:1], i2[..., 0:1]
-    p = _prepared(model, ("ifnet", fold, fused_head_tail), lambda m: _ifnet_args(
-        _with_folded_first_conv(m, ("conv32", "0")) if fold else m,
-        fused_head_tail))
-
+def _ifnet_trunk(p, x):
+    """IFNet's trunk on the prepared weights ``p``: (N, H, W, C) input ->
+    the (N, H/2, W/2, 64) bf16 features the kernel heads read."""
     h = x.to(_BF).contiguous()
     for args in p["conv32"]:
         h = conv3x3_fused(h, *args, "relu")
@@ -573,19 +553,84 @@ def ifnet_serve(model, x, n_frames=1, assume_gray=True,
     xb = upsample_xla(xb, p["upsamp128"], x128.shape[1:3]) + x128
     xb = module_xla(xb, p["upconv64"])
     up = _upsample(xb, x64.shape[1:3]).contiguous()
-    feat = conv3x3_fused(up, *p["upsamp64"], "relu") + x64
+    return conv3x3_fused(up, *p["upsamp64"], "relu") + x64
+
+
+def _head_half(p, name, feat):
+    """Head ``name``'s convs 0-2 on the conv kernel: its half-resolution
+    (N, H/2, W/2, K) maps (64 channels, those >= K zero, for the fused
+    tail)."""
+    t = feat
+    for args in p[name][0]:
+        t = conv3x3_fused(t, *args, "relu")
+    return t
+
+
+def _planar_tail(t, w3, b3, groups=1):
+    """The cuDNN head tail on planar maps: align-corners 2x upsample of the
+    NHWC half-resolution maps, a bf16 conv3 (``groups`` heads stacked
+    channel-wise), a bf16 bias add -> (N, groups*K, H, W)."""
+    t = F.interpolate(_nchw(t).contiguous(), scale_factor=2, mode="bilinear",
+                      align_corners=True)
+    return F.conv2d(t, w3, padding=1, groups=groups) + b3[None, :, None, None]
+
+
+def ifnet_serve(model, x, n_frames=1, assume_gray=True,
+                fused_head_tail=False, batched_head_tail=False):
+    """Eval IFNet forward in bf16: the conv32 and conv64 modules, upsamp64's
+    conv and the head convs 0-2 on the conv kernel, the first avg pool on
+    the pool kernel, the levels below on cuDNN, then each head's tail
+    (align-corners 2x upsample + conv3) and two sepconvs per frame.
+
+    Args:
+      model: the port's ``IFNet`` with ``n_frames`` frames.
+      x: (N, H, W, 6) two replicated-gray frames (or, with ``assume_gray``
+        False, two 3-channel frames), or the (N, H, W, 2) gray pair; H and
+        W multiples of 32; values in 0..1.
+      n_frames: 1 (the SFF net, four heads) or 2 (the SP net, four heads a
+        frame, read per frame as k2h, k2v, k1h, k1v: ``models.ifnet.HEADS``).
+      assume_gray: the frames are gray, so each sepconv runs on one
+        channel. False takes the 6-channel input's frames as 3 channels
+        each, runs each sepconv on 3 channels and returns their mean.
+      fused_head_tail: the head tails on the ``head_tail`` kernel instead of
+        cuDNN's upsample and conv (the JAX ``SSTEM_FUSED_HEAD_TAIL=1``).
+      batched_head_tail: all head tails as one cuDNN upsample of the heads'
+        half-resolution maps stacked channel-wise and one grouped conv3 (a
+        group a head; the JAX ``SSTEM_BATCHED_HEAD_TAIL=1``, the same
+        math as the per-head tails). With ``fused_head_tail`` also set,
+        the fused tail runs, as the JAX forward picks its fused tail first.
+
+    Returns:
+      (N, H, W, n_frames) float32, one channel per frame.
+    """
+    if n_frames != model.n_frames:
+        raise ValueError(f"ifnet_serve: n_frames={n_frames} but the model "
+                         f"has {model.n_frames}")
+    fold = x.shape[-1] == 2
+    if fold and not assume_gray:
+        raise ValueError("ifnet_serve: a 2-channel input is a gray pair; "
+                         "assume_gray=False takes the 6-channel input")
+    i1 = x[..., 0:1] if fold else x[..., 0:3]
+    i2 = x[..., 1:2] if fold else x[..., 3:6]
+    if assume_gray:
+        i1, i2 = i1[..., 0:1], i2[..., 0:1]
+    tail_form = ("fused" if fused_head_tail else
+                 "batched" if batched_head_tail else "cudnn")
+    p = _ifnet_prepared(model, fold, tail_form)
+    feat = _ifnet_trunk(p, x)
 
     def tail(name):
-        convs, (w3, b3), k = p[name]
-        t = feat
-        for args in convs:
-            t = conv3x3_fused(t, *args, "relu")
-        if fused_head_tail:
-            return head_tail(t, w3, b3)
-        # cuDNN tail on planar maps: upsample, bf16 conv, bf16 bias add
-        t = F.interpolate(_nchw(t).contiguous(), scale_factor=2,
-                          mode="bilinear", align_corners=True)
-        return F.conv2d(t, w3, padding=1) + b3[None, :, None, None]
+        t = _head_half(p, name, feat)
+        if tail_form == "fused":
+            return head_tail(t, *p[name][1])
+        return _planar_tail(t, *p[name][1])
+
+    if tail_form == "batched":
+        names = [n for frame in HEADS[n_frames] for n in frame]
+        y = _planar_tail(torch.cat([_head_half(p, n, feat) for n in names], -1),
+                         *p["batched"], groups=len(names))
+        tail = dict(zip(names, (m.contiguous() for m in y.split(
+            model.kernel_size, 1)))).pop
 
     pad = model.kernel_size // 2
     p1 = replication_pad_2d(_nchw(i1).float(), pad).to(_BF).contiguous()

@@ -43,7 +43,7 @@ def _rank_main(fn, rank, world, inbox, device, backend, init_method,
     ddp.teardown()
 
 
-def spawn(fn, world, *args, device="cpu", backend=None, init_method=None,
+def spawn(fn, world, *args, device="cuda", backend=None, init_method=None,
           timeout_s=600.0):
     """Run ``fn(rank, world, rank_device, *args)`` on ``world`` ranks and
     return their results in rank order.
@@ -53,7 +53,9 @@ def spawn(fn, world, *args, device="cpu", backend=None, init_method=None,
     importable by its module's name) that joins the group with
     ``ddp.init_process_group(backend, init_method, rank, world,
     device=device)``, which gives ``rank_device``, before ``fn`` and
-    leaves it after. ``init_method``
+    leaves it after. ``device`` defaults to the card, as every entry point
+    of the port does; the CPU runs ranks only when asked (``device="cpu"``,
+    under gloo). ``init_method``
     defaults to a free TCP port on localhost. If a rank raises or dies,
     every rank is killed and the parent raises a RuntimeError carrying
     that rank's traceback; if the ranks are not all done within

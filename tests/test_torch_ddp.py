@@ -180,7 +180,8 @@ def run(tmp_path_factory):
     def ranks():
         try:
             box["ranks"] = launch.spawn(
-                cases.run_cases, WORLD, cfgs["ddp"], backend="gloo",
+                cases.run_cases, WORLD, cfgs["ddp"], device="cpu",
+                backend="gloo",
                 init_method=f"file://{root}/pg", timeout_s=120)
         except BaseException as e:  # raised below, in the test's thread
             box["error"] = e

@@ -374,21 +374,26 @@ def two_frame():
     return model.eval(), inputs, want
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["cudnn_tail", "fused_tail"])
+@pytest.mark.parametrize("tail", ["cudnn", "fused", "batched"],
+                         ids=["cudnn_tail", "fused_tail", "batched_tail"])
 @pytest.mark.parametrize("form", ["pair", "rgb"])
-def test_ifnet_serve_two_frame_matches_jax_serve(two_frame, form, fused):
+def test_ifnet_serve_two_frame_matches_jax_serve(two_frame, form, tail):
     """The port's ``ifnet_serve(n_frames=2)`` against the JAX one (Pallas in
     interpret mode), both bf16: NRMSE below 0.05 of the output's std, the
     bound tests/test_serving.py::test_ifnet_serve_two_frame sets between the
     JAX serving forward and flax. ``pair``: the 2-channel gray pair (first
     conv pair-folded); ``rgb``: 6 channels with ``assume_gray=False``, each
     sepconv on 3 channels and their mean. The head tails run on cuDNN's
-    upsample and conv or on the head-tail kernel's plain version; the JAX
-    side runs its planar tail (its fused tail needs W/2 % 128 == 0)."""
+    upsample and conv, on the head-tail kernel's plain version, or batched
+    (all eight in one upsample and one grouped conv3, the JAX
+    ``SSTEM_BATCHED_HEAD_TAIL=1``, the same math as its planar tail); the
+    JAX side runs its planar tail (its fused tail needs W/2 % 128 == 0)."""
     model, inputs, want = two_frame
     with torch.inference_mode():
         got = ifnet_serve(model, torch.from_numpy(inputs[form]), n_frames=2,
-                          assume_gray=form == "pair", fused_head_tail=fused)
+                          assume_gray=form == "pair",
+                          fused_head_tail=tail == "fused",
+                          batched_head_tail=tail == "batched")
     assert got.dtype == torch.float32 and got.shape == want[form].shape == (
         1, 64, 64, 2)
     assert _nrmse(got, want[form]) < 0.05, _nrmse(got, want[form])
