@@ -36,9 +36,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      plain versions at the training shape, and their times (CUDA events)
  12. conv3x3, pool, deconv and head-tail kernels vs their plain versions at
      every conv3x3 and deconv signature the packed_conv=True SFF path
-     launches at full width (SFF_CONV_CHECKS, DECONV_CHECKS) and at odd
-     sizes for the edges; the head tail's two designs at every
-     HEAD_TAIL_CHECKS row
+     launches at full width (SFF_CONV_CHECKS, DECONV_CHECKS: conv3x3's
+     wgmma, narrow_in and narrow_out designs) and at odd sizes for the
+     edges of every design (ODD_CONV_CHECKS); the head tail's two designs
+     at every HEAD_TAIL_CHECKS row
  13. the packed_conv=True pipeline on the card vs on the CPU (K=51, bfloat16
      on both sides): NRMSE of each float output, uint8 level differences
  14. phase 6's workload in bfloat16 on the packed_conv=True path, with the
@@ -46,9 +47,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      launch counts per group asserted, signatures checked, ms/section, peak
      memory, and one call under torch.profiler each
  15. every conv3x3 and deconv shape of the SFF packed path at full width
-     (CUDA events): the design the kernel picks, the mma.sync design in the
-     same call, the plain version, the bound, the bare cuDNN call and (conv)
-     cuDNN with the epilogue as separate ops, and the launches per group;
+     (CUDA events): the design the kernel picks and the mma.sync design in
+     alternating rounds, the plain version, the bound, the bare cuDNN call
+     and (conv) cuDNN with the epilogue as separate ops, and the launches
+     per group;
      then the pool, and the head tail (both designs) beside theirs
  16. the probe kernels (tile copy, gather, dynamic roll; exact, the tile
      copy also at tools/probe_dma_conv.py: COPY_EDGE_CASES, the gather and
@@ -464,11 +466,18 @@ DECONV_CHECKS = (
     (4, 640, 640, 64, 32, "relu", None),
     (4, 640, 640, 64, 32, "relu", "post_act_half"),
 )
-# odd sizes and channel counts for the edges of both designs
+# odd sizes and channel counts for the edges of every design: wgmma, mma
+# (K -> K, 100 -> 90), narrow_in (Cin 1, 2, 3, 6: odd and even Cin, each
+# K and N width but K 64 x N 64, residual by loads and by cp.async) and
+# narrow_out (Cin 16 to 128, Cout 1, 2, 6, 8)
 ODD_CONV_CHECKS = (
     (2, 37, 53, K, K, "leaky", "post"), (2, 37, 53, 32, 32, "relu", "pre"),
     (2, 37, 53, 64, K, "relu", None), (2, 37, 53, 128, 128, "leaky", "post"),
     (2, 37, 53, 100, 90, "relu", "pre"), (2, 37, 53, 48, 24, None, "post"),
+    (2, 37, 53, 1, 64, "relu", None), (2, 37, 53, 2, 32, "leaky", "post"),
+    (2, 37, 53, 3, 16, "relu", None), (2, 37, 53, 6, 6, "relu", "pre"),
+    (2, 37, 53, 32, 1, "relu", None), (2, 37, 53, 64, 2, None, "post"),
+    (2, 37, 53, 128, 6, "leaky", None), (2, 37, 53, 16, 8, None, "pre"),
 )
 ODD_DECONV_CHECKS = (
     (2, 37, 53, K, 27, "relu", "post_act_half"),
@@ -1473,7 +1482,7 @@ def compare_packed(gpu_sec, cpu_sec, gpu, cpu, ids):
 
 
 def say_timing(name, t):
-    for key in ("design", "ms", "mma_ms", "simple_ms", "plain_ms",
+    for key in ("design", "entry", "ms", "mma_ms", "simple_ms", "plain_ms",
                 "library_ms", "cudnn_epilogue_ms", "launches_per_unit",
                 "host_us", "device_us", "library_host_us",
                 "library_device_us"):
@@ -1496,12 +1505,17 @@ def row_launches(calls, kernel, n, h, w, cin, cout, res, units):
                and k[7] == res) / units
 
 
+# the source of each conv3x3 design (csrc/conv3x3_fused.cu but narrow_in)
+CONV_SOURCES = {"narrow_in": "sstem_tpu_torch/csrc/conv3x3_narrow_in.cu"}
+
+
 def time_conv_rows(rows, gen, calls, units):
     """conv3x3 at each (n, h, w, cin, cout, residual), by CUDA events: the
-    design the C entry point picks (ms), the mma.sync design (its _mma
-    entry point, mma_ms), the plain version, the bare cuDNN conv (bf16
-    channels-last, library_ms), cuDNN with the epilogue as separate ops,
-    the bound, and the launches per unit of the recorded path run."""
+    design the C entry point picks (ms) and the mma.sync design (its _mma
+    entry point, mma_ms) in alternating rounds, the plain version, the
+    bare cuDNN conv (bf16 channels-last, library_ms), cuDNN with the
+    epilogue as separate ops, the bound, and the launches per unit of the
+    recorded path run; with the design's entry point and source."""
     import torch.nn.functional as F
 
     from sstem_tpu_torch.kernels import conv3x3 as c3
@@ -1528,14 +1542,19 @@ def time_conv_rows(rows, gen, calls, units):
 
         nbytes = 2 * (n * h * w * (cin + cout * (2 if r is not None else 1))
                       + 9 * cin * cout) + 8 * cout
+        ms, mma_ms = paired_ms(entry("sstem_conv3x3_fused"),
+                               entry(c3.ENTRY_POINTS["mma"]), 5, 10)
         t = timing(
-            cuda_ms(entry("sstem_conv3x3_fused"), 10, 2),
+            ms,
             cuda_ms(lambda: c3.conv3x3_fused_plain(x, wt, scale, shift,
                                                    "relu", r, pre), 2),
             cuda_ms(lambda: F.conv2d(x_cl, w_cl, padding=1), 10, 2),
             roofline(nbytes, 2 * n * h * w * 9 * cin * cout, BF16_FLOP_PER_S))
-        t.update(design=c3.design(cin, cout),
-                 mma_ms=cuda_ms(entry(c3.ENTRY_POINTS["mma"]), 10, 2),
+        design = c3.design(cin, cout)
+        t.update(design=design, entry=c3.ENTRY_POINTS[design],
+                 source=CONV_SOURCES.get(
+                     design, "sstem_tpu_torch/csrc/conv3x3_fused.cu"),
+                 mma_ms=mma_ms,
                  cudnn_epilogue_ms=cuda_ms(cudnn_epilogue, 5, 1),
                  launches_per_unit=row_launches(calls, "conv3x3", n, h, w, cin,
                                                 cout, res, units))
@@ -5197,7 +5216,8 @@ def new_kernel_entries(res):
 
 def ptxas_summary(log):
     """One line per kernel of the Hopper designs (conv3x3 and deconv wgmma,
-    head-tail wgmma, sepconv forward and backward blocked) from the build's
+    conv3x3 narrow_in and narrow_out, head-tail wgmma, sepconv forward and
+    backward blocked) from the build's
     ptxas -v output:
     registers, spills, static shared memory (the dynamic shared memory of
     each wgmma instantiation is its source's plan, PERF.md), and every
@@ -5211,10 +5231,16 @@ def ptxas_summary(log):
             say("ptxas wgmma serialized", line.split("function", 1)[-1].strip())
         if "Compiling entry function" in line:
             m = re.search(r"(conv3x3|deconv2x)_wgmma_kernelILi(\d+)ELi(\d+)", line)
+            ni = re.search(r"conv3x3_narrow_in_kernelILi(\d+)ELi(\d+)", line)
+            no = re.search(r"conv3x3_narrow_out_kernelILi(\d+)E", line)
             b = re.search(r"sepconv_(fwd|bwd)_blocked_kernelILi(\d+)E"
                           r"(?:Li(\d+)E)?(\w+?)EEv", line)
             if m:
                 name = f"{m.group(1)} wgmma Cin_p={m.group(2)} N={m.group(3)}"
+            elif ni:
+                name = f"conv3x3 narrow_in K_p={ni.group(1)} N={ni.group(2)}"
+            elif no:
+                name = f"conv3x3 narrow_out Cin_p={no.group(1)} N=24"
             elif b:
                 dts = [types[t] for t in re.findall(r"13__nv_bfloat16|S2_|f",
                                                      b.group(4))]

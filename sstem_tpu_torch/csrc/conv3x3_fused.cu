@@ -16,11 +16,12 @@
 // tensor cores close behind; at the SP path's 128 -> 128 (2x640^2, 241
 // GFLOP, 0.42 GB) the tensor cores bound it (0.244 ms).
 //
-// Two designs, picked by shape in sstem_conv3x3_fused (never on failure):
+// Four designs, picked by shape in sstem_conv3x3_fused (never on failure;
+// kernels/conv3x3.py: design):
 //
 // wgmma (Cin a multiple of 8, Cout >= 16; every conv of the packed paths
-// but the gray-pair first convs, Cin 1 or 2, odd Cin such as K = 51, and
-// the narrow heads, Cout 1 or 2): an implicit GEMM on warpgroup tensor
+// but the gray-pair first convs, Cin 1 or 2, the IFNet's Cin 6 and the
+// narrow heads, Cout 1 or 2): an implicit GEMM on warpgroup tensor
 // cores on hopper.cuh's mainloop. M = 64 output pixels of one row, N = the
 // block's output channels (32, 64 or 128: one wgmma.m64nNk16), K = 16 input
 // channels of one tap; the nine taps accumulate in f32 registers. A block
@@ -56,12 +57,33 @@
 //
 // What holds it back (chip_smoke.py's readings, PERF.md): the producer's
 // 16-byte-wide boxes (~300 cycles of the TMA unit a box), the consumers'
-// turns on the tensor cores, and at N = 32 the epilogue.
+// turns on the tensor cores, and at N = 32 the epilogue. The consumer
+// warpgroup index is broadcast from lane 0 (hopper.cuh: mainloop): taken
+// as threadIdx.x / 128, ptxas saw the wgmmas on a divergent path and
+// serialized them (warning C7520).
 //
-// mma.sync (the other shapes, sstem_conv3x3_fused_mma): the first port's
-// design, mma.sync m16n8k16 from conv_tile.cuh, 8 x 16 output tiles loaded
-// synchronously by 4 warps, channels padded to 16 in shared memory, outputs
-// above 64 channels split over grid.y.
+// narrow_out (Cin a multiple of 8, Cout <= 8: the heads 32 -> 1, 32 -> 2,
+// 64 -> 1): the same mainloop, 8-row tiles
+// (10 staged rows). With N = 8 a wgmma's work is its A operand's 2 KB
+// shared-memory read, so N carries the three row taps instead: for each
+// staged input row j and column tap dx, one wgmma.m64n24k16 a 16-channel
+// step gives the partials that row adds to output rows j - 1, j, j + 1
+// (columns 8 dy + co, the weights laid out so); an output row sums its
+// three in f32. Each input row is read three times, not nine. Bound by
+// reading the input (0.129 ms at 4 x 1280^2, 32 -> 1); held back by the
+// producer's 8-channel TMA boxes (the kernel's note). The staging is the
+// output rows' own dense [pixel][cout] layout, copied out 16 bytes a
+// thread.
+//
+// narrow_in (Cin <= 7, Cout <= 64: the gray-pair first convs and the
+// IFNet's 2 -> 6, 6 -> 6, 6 -> 32): conv3x3_narrow_in.cu, K = the 3 x 3 x
+// Cin patch, its A operand built in registers.
+//
+// mma.sync (the other shapes, sstem_conv3x3_fused_mma: odd wide Cin such as
+// K = 51 or 100, Cout 9 to 15): the first port's design, mma.sync m16n8k16
+// from conv_tile.cuh, 8 x 16 output tiles loaded synchronously by 4 warps,
+// channels padded to 16 in shared memory, outputs above 64 channels split
+// over grid.y.
 //
 // Offsets into the activations are 64-bit (tensors reach 0.84 GB).
 
@@ -337,48 +359,6 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
   };
   Affine<N> aff;
   aff.load(sc, sh, t);
-  // one output row of the tile (pixels m0..m0+63 of the staging): residual
-  // pairs read first, then the math in f32 in the plain version's order,
-  // then the bf16 pairs stored
-  auto finish_row = [&](float (&d)[N / 2], int m0, auto act_c, auto res_c) {
-    constexpr int ACT = decltype(act_c)::value;
-    constexpr int RES = decltype(res_c)::value;
-    auto at = [&](int i, int half) {
-      return staging + Staging<N>::offset(kPx, m0 + warp * 16 + g + 8 * half,
-                                          8 * i + 2 * t);
-    };
-    float2 rv[N / 8][2];
-#pragma unroll
-    for (int i = 0; i < N / 8; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        rv[i][half] = RES ? unpack2(at(i, half)) : make_float2(0.f, 0.f);
-    uint32_t pk[N / 8][2];
-#pragma unroll
-    for (int i = 0; i < N / 8; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float v[2] = {d[4 * i + 2 * half], d[4 * i + 2 * half + 1]};
-        const float rs[2] = {rv[i][half].x, rv[i][half].y};
-        const float scj[2] = {aff.scale[i].x, aff.scale[i].y};
-        const float shj[2] = {aff.shift[i].x, aff.shift[i].y};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float y = v[j];
-          if (RES == 1) y = __fadd_rn(y, rs[j]);
-          y = __fadd_rn(__fmul_rn(y, scj[j]), shj[j]);
-          if (RES == 2) y = __fadd_rn(y, rs[j]);
-          v[j] = activate_c<ACT>(y);
-        }
-        pk[i][half] = pack2u(v[0], v[1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < N / 8; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        *reinterpret_cast<uint32_t*>(at(i, half)) = pk[i][half];
-  };
   auto epilogue = [&](int tile, int kg) {
     if (kg != C::kItems - 1) return;
     int b, y0, x0;
@@ -390,39 +370,16 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
       staging_free();
     }
     dispatch_epilogue(act, res_mode, [&](auto act_c, auto res_c) {
+      constexpr int ACT = decltype(act_c)::value;
+      constexpr int RES = decltype(res_c)::value;
 #pragma unroll
-      for (int r = 0; r < R; ++r) finish_row(acc[r], r * kTileW, act_c, res_c);
-    });
-    if (cout % 8 == 0) {
-      // one TMA store a row and 64-channel box; the edges are clipped
-      fence_proxy_async();
-      named_bar(bar, 128);
-      if (wt == 0) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (y0 + r >= h) continue;
-#pragma unroll
-          for (int k = 0; k < N / Staging<N>::kBox; ++k) {
-            tma_store_4d(&omap,
-                         staging + Staging<N>::offset(kPx, r * kTileW,
-                                                      k * Staging<N>::kBox),
-                         co0 + k * Staging<N>::kBox, x0, y0 + r, b);
-          }
-        }
-        bulk_commit();
-      }
-    } else {
-      named_bar(bar, 128);
-      const int px = min(kTileW, wd - x0);
       for (int r = 0; r < R; ++r) {
-        if (y0 + r >= h) continue;
-        staging_to_global<N>(
-            out + ((static_cast<size_t>(b) * h + y0 + r) * wd + x0) * cout + co0,
-            staging + Staging<N>::offset(kPx, r * kTileW, 0), kPx, px, nc,
-            cout, wt);
+        finish_row<N, ACT, RES>(acc[r], staging, kPx, r * kTileW, warp, g, t,
+                                aff);
       }
-      named_bar(bar, 128);
-    }
+    });
+    store_rows<N, R>(&omap, staging, out, b, y0, x0, h, wd, cout, co0, nc, bar,
+                     wt);
   };
   mainloop<C::kKG, C::kHR, C::kStages, C::kItems, C::kItems>(
       smem + L::kRing, reinterpret_cast<uint64_t*>(smem + L::kFull),
@@ -480,6 +437,225 @@ cudaError_t launch_n(int cout, const void* x, const void* w, const float* sc,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// the narrow_out design (cin % 8 == 0, cout <= 8)
+// ---------------------------------------------------------------------------
+
+namespace nout {
+
+using namespace sstem::hopper;
+using sstem::smem_addr;
+
+constexpr int kRows = 8;           // output rows a tile
+constexpr int kHR = kRows + 2;     // staged input rows
+constexpr int kN = 24;             // wgmma N: three row taps x 8 channels
+constexpr int kPx = kRows * kTileW;
+
+template <int CIN_P>
+struct Cfg {
+  static constexpr int kKG = CIN_P < 32 ? CIN_P : 32;
+  static constexpr int kItems = CIN_P / kKG;
+  // the staging: kPx pixels of at most 8 channels a consumer
+  template <int S>
+  using Layout = Smem<CIN_P, kN, 3, kKG, kHR, S, kConsumers * kPx, 8>;
+  static constexpr int kStages = ring_stages<Layout>();
+  using L = Layout<kStages>;
+};
+
+// Weights [3][3][cin][cout] (HWIO) into shared [dx][CIN_P/8][24][8]: for
+// column tap dx, B's column n = 8 dy + co holds tap (dy, dx)'s weights of
+// output channel co; zero past cin and cout.
+template <int CIN_P>
+__device__ void load_weights_by_row(bf16* w_s, const bf16* __restrict__ w,
+                                    int cin, int cout) {
+  const bf16 zero_v = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < 3 * CIN_P * kN; i += blockDim.x) {
+    const int e = i % 8;
+    int rest = i / 8;
+    const int n = rest % kN;
+    rest /= kN;
+    const int k = (rest % (CIN_P / 8)) * 8 + e;
+    const int dx = rest / (CIN_P / 8);
+    const int dy = n / 8;
+    const int co = n % 8;
+    w_s[i] = (k < cin && co < cout)
+                 ? w[((static_cast<size_t>(dy) * 3 + dx) * cin + k) * cout + co]
+                 : zero_v;
+  }
+}
+
+// An implicit GEMM whose N holds the three row taps: for each staged input
+// row j and column tap dx, one wgmma.m64n24k16 a 16-channel step computes,
+// for the 64 pixels of row j, the partial sums that row contributes to
+// output rows j - 1, j and j + 1 of the tile (tap dy = 0, 1, 2 in columns
+// 8 dy ..); an output row sums its three partials. Each input row is read
+// from shared memory three times (once a dx) instead of nine (once a tap):
+// with N = 8, the wgmmas' A operand reads, 2 KB each, not N, set their
+// pace. The rest is the wgmma design's mainloop, whose producer then sets
+// the pace: its TMA boxes of 8 channels move 16 bytes a pixel row by row,
+// ~7 bytes a cycle an SM on the card (with its wgmmas removed the kernel
+// took as long).
+// res_mode: 0 none, 1 added before the affine, 2 after it (both before act)
+template <int CIN_P>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_narrow_out_kernel(const __grid_constant__ CUtensorMap tmap,
+                          const bf16* __restrict__ w,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ shift,
+                          const bf16* __restrict__ res, bf16* __restrict__ out,
+                          int h, int wd, int cin, int cout, int act,
+                          int res_mode, int tiles_x, int tiles_y, int tiles) {
+  using C = Cfg<CIN_P>;
+  using L = typename C::L;
+  using S = Stage<C::kKG, kHR>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kFull);
+  uint64_t* empty = reinterpret_cast<uint64_t*>(smem + L::kEmpty);
+  uint64_t* order = reinterpret_cast<uint64_t*>(smem + L::kOrder);
+  float* sc = reinterpret_cast<float*>(smem + L::kScale);
+  float* sh = reinterpret_cast<float*>(smem + L::kShift);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);     // the producer's arrival (+ TMA bytes)
+      mbar_init(&empty[s], 128);  // one consumer warpgroup's threads
+    }
+    for (int c = 0; c < kConsumers; ++c) mbar_init(&order[c], 128);
+  }
+  load_weights_by_row<CIN_P>(reinterpret_cast<bf16*>(smem), w, cin, cout);
+  for (int i = threadIdx.x; i < 8; i += blockDim.x) {
+    sc[i] = i < cout ? scale[i] : 0.f;
+    sh[i] = i < cout ? shift[i] : 0.f;
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  const int wt = threadIdx.x % 128;
+  const int warp = wt / 32;
+  const int g = (wt % 32) / 4;
+  const int t = wt % 4;
+  const uint32_t w_s = smem_addr(smem);
+  unsigned char* staging =
+      smem + L::kStaging + (wgi < kConsumers ? wgi : 0) * kPx * 8 * 2;
+  float acc[kHR][kN / 2];
+
+  auto where = [&](int tile, int& b, int& y0, int& x0) {
+    const int rest = tile / tiles_x;
+    x0 = (tile - rest * tiles_x) * kTileW;
+    b = rest / tiles_y;
+    y0 = (rest - b * tiles_y) * kRows;
+  };
+  auto origin = [&](int tile, int& b, int& ys, int& xs) {
+    where(tile, b, ys, xs);
+    ys -= 1;
+    xs -= 1;
+  };
+  const int bar = 1 + wgi;  // named barrier of this consumer warpgroup
+  // the residual rows into the staging (the last tile's stores, which end
+  // at a barrier, have read it), before the tile's wgmmas
+  auto prefetch = [&](int tile) {
+    if (!res_mode) return;
+    int b, y0, x0;
+    where(tile, b, y0, x0);
+    load_dense_rows<kRows>(staging, res, b, y0, x0, h, wd, cout, wt);
+  };
+  auto mma = [&](int kg, uint32_t stage) {
+    if (kg == 0) {
+#pragma unroll
+      for (int j = 0; j < kHR; ++j)
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) acc[j][i] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+#pragma unroll
+      for (int kk = 0; kk < C::kKG / 16; ++kk) {
+        const uint64_t bd = gmma_desc(
+            w_s + ((dx * (CIN_P / 8) + kg * (C::kKG / 8) + 2 * kk) * kN) * 16,
+            kN * 16, 128);
+#pragma unroll
+        for (int j = 0; j < kHR; ++j) {
+          const uint64_t ad = gmma_desc(
+              stage + 2 * kk * S::kChunkBytes + (j * kPitch + dx) * 16,
+              S::kChunkBytes, 128);
+          wgmma_m64k16(acc[j], ad, bd);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kHR; ++j) fence_operands(acc[j]);
+  };
+  Affine<8> aff;
+  aff.load(sc, sh, t);
+  auto epilogue = [&](int tile, int kg) {
+    if (kg != C::kItems - 1) return;
+    int b, y0, x0;
+    where(tile, b, y0, x0);
+    named_bar(bar, 128);  // the residual, where the tile has one
+    dispatch_epilogue(act, res_mode, [&](auto act_c, auto res_c) {
+      constexpr int ACT = decltype(act_c)::value;
+      constexpr int RES = decltype(res_c)::value;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        // output row r: row taps 0, 1, 2 of input rows r, r + 1, r + 2
+        float d[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          d[j] = __fadd_rn(__fadd_rn(acc[r][j], acc[r + 1][4 + j]),
+                           acc[r + 2][8 + j]);
+        }
+        finish_row_dense<ACT, RES>(d, staging + r * kTileW * cout * 2, cout,
+                                   warp, g, t, aff);
+      }
+    });
+    store_dense_rows<kRows>(staging, out, b, y0, x0, h, wd, cout, bar, wt);
+  };
+  mainloop<C::kKG, kHR, C::kStages, C::kItems, C::kItems>(
+      smem + L::kRing, full, empty, order, &tmap, tiles, origin, prefetch, mma,
+      epilogue);
+}
+
+template <int CIN_P>
+cudaError_t launch(const void* x, const void* w, const float* scale,
+                   const float* shift, const void* res, void* out, int n, int h,
+                   int wd, int cin, int cout, int act, int res_mode,
+                   cudaStream_t stream) {
+  using C = Cfg<CIN_P>;
+  auto kernel = conv3x3_narrow_out_kernel<CIN_P>;
+  const size_t smem = C::L::kBytes;
+  const int tiles_x = (wd + kTileW - 1) / kTileW;
+  const int tiles_y = (h + kRows - 1) / kRows;
+  const long long tiles = static_cast<long long>(n) * tiles_x * tiles_y;
+  if (tiles > INT32_MAX) return cudaErrorInvalidValue;
+  CUtensorMap tmap;
+  cudaError_t err = make_tensor_map(&tmap, x, n, h, wd, cin, kHR);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = sstem::persistent_grid(kernel, kThreads, smem, tiles, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      tmap, static_cast<const bf16*>(w), scale, shift,
+      static_cast<const bf16*>(res), static_cast<bf16*>(out), h, wd, cin, cout,
+      act, res_mode, tiles_x, tiles_y, static_cast<int>(tiles));
+  return cudaGetLastError();
+}
+
+}  // namespace nout
+
+}  // namespace
+
+namespace {
+
+bool bad_args(int n, int h, int wd, int cin, int cout, int act, int res_mode,
+              const void* res) {
+  return n < 1 || h < 1 || wd < 1 || cin < 1 || cin > 128 || cout < 1 ||
+         cout > 128 || act < 0 || act > 2 || res_mode < 0 || res_mode > 2 ||
+         (res_mode != 0 && res == nullptr);
+}
+
 }  // namespace
 
 // defined below
@@ -488,21 +664,67 @@ extern "C" int sstem_conv3x3_fused_mma(const void* x, const void* w,
                                        const void* res, void* out, int n, int h,
                                        int wd, int cin, int cout, int act,
                                        int res_mode, void* stream);
+// the narrow_in design (conv3x3_narrow_in.cu), for cin <= 7 and cout <= 64
+namespace sstem {
+int conv3x3_narrow_in(const void* x, const void* w, const void* scale,
+                      const void* shift, const void* res, void* out, int n,
+                      int h, int wd, int cin, int cout, int act, int res_mode,
+                      void* stream);
+}  // namespace sstem
+
+namespace {
+
+// the narrow_out design, for cin % 8 == 0 and cout <= 8 (arguments as
+// sstem_conv3x3_fused's, which checks them)
+int narrow_out(const void* x, const void* w, const void* scale,
+               const void* shift, const void* res, void* out, int n, int h,
+               int wd, int cin, int cout, int act, int res_mode,
+               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  switch (pad16(cin)) {
+    case 16:
+      return static_cast<int>(nout::launch<16>(x, w, sc, sh, res, out, n, h,
+                                                wd, cin, cout, act, res_mode, s));
+    case 32:
+      return static_cast<int>(nout::launch<32>(x, w, sc, sh, res, out, n, h,
+                                                wd, cin, cout, act, res_mode, s));
+    case 48:
+    case 64:
+      return static_cast<int>(nout::launch<64>(x, w, sc, sh, res, out, n, h,
+                                                wd, cin, cout, act, res_mode, s));
+    default:  // 80 to 128
+      return static_cast<int>(nout::launch<128>(x, w, sc, sh, res, out, n, h,
+                                                 wd, cin, cout, act, res_mode,
+                                                 s));
+  }
+}
+
+}  // namespace
 
 // x (n, h, w, cin) bf16; w (3, 3, cin, cout) bf16 (HWIO); scale, shift
 // (cout,) f32; res (n, h, w, cout) bf16 or null; out (n, h, w, cout) bf16.
 // cin, cout in [1, 128]; act 0 none, 1 relu, 2 leaky 0.2; res_mode 0 none,
-// 1 before the affine, 2 after it. The wgmma design takes cin % 8 == 0 and
-// cout >= 16 (kernels/conv3x3.py: design), the mma.sync design the rest.
+// 1 before the affine, 2 after it. The design by shape (kernels/conv3x3.py:
+// design): wgmma for cin % 8 == 0 and cout >= 16, narrow_out for cin % 8 ==
+// 0 and cout <= 8, narrow_in for cin <= 7 and cout <= 64, mma.sync for the
+// rest.
 extern "C" int sstem_conv3x3_fused(const void* x, const void* w,
                                    const void* scale, const void* shift,
                                    const void* res, void* out, int n, int h,
                                    int wd, int cin, int cout, int act,
                                    int res_mode, void* stream) {
-  if (n < 1 || h < 1 || wd < 1 || cin < 1 || cin > 128 || cout < 1 ||
-      cout > 128 || act < 0 || act > 2 || res_mode < 0 || res_mode > 2 ||
-      (res_mode != 0 && res == nullptr)) {
+  if (bad_args(n, h, wd, cin, cout, act, res_mode, res)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (cin % 8 == 0 && cout <= 8) {
+    return narrow_out(x, w, scale, shift, res, out, n, h, wd, cin, cout, act,
+                      res_mode, stream);
+  }
+  if (cin <= 7 && cout <= 64) {
+    return sstem::conv3x3_narrow_in(x, w, scale, shift, res, out, n, h, wd,
+                                    cin, cout, act, res_mode, stream);
   }
   if (cin % 8 != 0 || cout < 16) {
     return sstem_conv3x3_fused_mma(x, w, scale, shift, res, out, n, h, wd, cin,
@@ -529,8 +751,7 @@ extern "C" int sstem_conv3x3_fused(const void* x, const void* w,
   }
 }
 
-// the mma.sync design, for the shapes above that the wgmma design does not
-// take
+// the mma.sync design, for the shapes above that no other design takes
 // x (n, h, w, cin) bf16; w (3, 3, cin, cout) bf16 (HWIO); scale, shift
 // (cout,) f32; res (n, h, w, cout) bf16 or null; out (n, h, w, cout) bf16.
 // cin, cout in [1, 128]; act 0 none, 1 relu, 2 leaky 0.2; res_mode 0 none,
@@ -540,9 +761,7 @@ extern "C" int sstem_conv3x3_fused_mma(const void* x, const void* w,
                                    const void* res, void* out, int n, int h,
                                    int wd, int cin, int cout, int act,
                                    int res_mode, void* stream) {
-  if (n < 1 || h < 1 || wd < 1 || cin < 1 || cin > 128 || cout < 1 ||
-      cout > 128 || act < 0 || act > 2 || res_mode < 0 || res_mode > 2 ||
-      (res_mode != 0 && res == nullptr)) {
+  if (bad_args(n, h, wd, cin, cout, act, res_mode, res)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

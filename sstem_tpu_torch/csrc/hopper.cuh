@@ -206,6 +206,21 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 // 16w..16w+15; with g = lane / 4, t = lane % 4, register 4i + j holds row
 // 16w + g + 8 (j / 2), column 8i + 2t + (j % 2).
 
+// D (64 x 24, f32) += A (64 x 16) . B (16 x 24), both bf16 in shared
+// memory, K-major, through descriptors (conv3x3's narrow_out design: the
+// three row taps x 8 output channels):
+//   wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16
+//       {d0..d11}, desc_a, desc_b, p (scale-d = 1), 1, 1, 0, 0;
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[12], uint64_t desc_a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 // D (64 x 32, f32) += A (64 x 16) . B (16 x 32), both bf16 in shared
 // memory, K-major, through descriptors:
 //   wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16
@@ -262,6 +277,57 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+
+// The register-A forms (conv3x3's narrow_in design builds its A operand,
+// an im2col of the staged halo, in registers).
+
+// D (64 x 8, f32) += A (64 x 16, bf16 in registers, the m16n8k16 A
+// fragment of each warp's 16 rows) . B (16 x 8, bf16 in shared memory,
+// K-major, through its descriptor):
+//   wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16
+//       {d0..d3}, {a0..a3}, desc_b, p (scale-d = 1), 1, 1, 0;
+__device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[4],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 32, f32) += A (64 x 16, bf16 in registers, the m16n8k16 A
+// fragment of each warp's 16 rows) . B (16 x 32, bf16 in shared memory,
+// K-major, through its descriptor):
+//   wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16
+//       {d0..d15}, {a0..a3}, desc_b, p (scale-d = 1), 1, 1, 0;
+__device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers, the m16n8k16 A
+// fragment of each warp's 16 rows) . B (16 x 64, bf16 in shared memory,
+// K-major, through its descriptor):
+//   wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16
+//       {d0..d31}, {a0..a3}, desc_b, p (scale-d = 1), 1, 1, 0;
+__device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
 
 // ---- the staging ring ----------------------------------------------------
 
@@ -504,6 +570,190 @@ __device__ __forceinline__ uint32_t pack2u(float a, float b) {
 }
 
 
+// One output row of a warpgroup's tile, from its accumulators d (the
+// m64nN layout above) for pixels m0..m0+63 of the staging (`rows` pixels
+// a box): the residual pairs the caller staged there read first (RES 1:
+// added before the affine, 2: after it), then the math in f32 in the plain
+// version's order, then the bf16 pairs written over them.
+template <int N, int ACT, int RES>
+__device__ __forceinline__ void finish_row(const float (&d)[N / 2],
+                                           unsigned char* staging, int rows,
+                                           int m0, int warp, int g, int t,
+                                           const Affine<N>& aff) {
+  auto at = [&](int i, int half) {
+    return staging + Staging<N>::offset(rows, m0 + warp * 16 + g + 8 * half,
+                                        8 * i + 2 * t);
+  };
+  float2 rv[N / 8][2];
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      rv[i][half] = RES ? unpack2(at(i, half)) : make_float2(0.f, 0.f);
+  uint32_t pk[N / 8][2];
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float v[2] = {d[4 * i + 2 * half], d[4 * i + 2 * half + 1]};
+      const float rs[2] = {rv[i][half].x, rv[i][half].y};
+      const float scj[2] = {aff.scale[i].x, aff.scale[i].y};
+      const float shj[2] = {aff.shift[i].x, aff.shift[i].y};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float y = v[j];
+        if (RES == 1) y = __fadd_rn(y, rs[j]);
+        y = __fadd_rn(__fmul_rn(y, scj[j]), shj[j]);
+        if (RES == 2) y = __fadd_rn(y, rs[j]);
+        v[j] = activate_c<ACT>(y);
+      }
+      pk[i][half] = pack2u(v[0], v[1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<uint32_t*>(at(i, half)) = pk[i][half];
+}
+
+// The R finished rows of a warpgroup's tile (image b, rows y0.., columns
+// x0..; output channels co0.., nc of the cout) out of its staging into
+// device memory; the warpgroup's 128 threads (thread index wt) meet at
+// named barrier `bar`. Where cout % 8 == 0, one TMA store a row and
+// channel box (rows past h skipped, the box clipped at the right edge;
+// the caller waits for their reads before it writes the staging again),
+// else staging_to_global.
+template <int N, int R>
+__device__ __forceinline__ void store_rows(const CUtensorMap* omap,
+                                           unsigned char* staging, bf16* out,
+                                           int b, int y0, int x0, int h,
+                                           int wd, int cout, int co0, int nc,
+                                           int bar, int wt) {
+  constexpr int kPx = R * kTileW;
+  if (cout % 8 == 0) {
+    fence_proxy_async();
+    named_bar(bar, 128);
+    if (wt == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (y0 + r >= h) continue;
+#pragma unroll
+        for (int k = 0; k < N / Staging<N>::kBox; ++k) {
+          tma_store_4d(omap,
+                       staging + Staging<N>::offset(kPx, r * kTileW,
+                                                    k * Staging<N>::kBox),
+                       co0 + k * Staging<N>::kBox, x0, y0 + r, b);
+        }
+      }
+      bulk_commit();
+    }
+  } else {
+    named_bar(bar, 128);
+    const int px = min(kTileW, wd - x0);
+    for (int r = 0; r < R; ++r) {
+      if (y0 + r >= h) continue;
+      staging_to_global<N>(
+          out + ((static_cast<size_t>(b) * h + y0 + r) * wd + x0) * cout + co0,
+          staging + Staging<N>::offset(kPx, r * kTileW, 0), kPx, px, nc, cout,
+          wt);
+    }
+    named_bar(bar, 128);
+  }
+}
+
+// `bytes` bytes from src to dst (global or shared) by a warpgroup's 128
+// threads (thread index wt): 16, 4 or 2 bytes a load and store, the widest
+// that both addresses and the length allow.
+__device__ __forceinline__ void copy_run(void* dst, const void* src, int bytes,
+                                         int wt) {
+  const uintptr_t al = reinterpret_cast<uintptr_t>(dst) |
+                       reinterpret_cast<uintptr_t>(src) |
+                       static_cast<uintptr_t>(bytes);
+  if (al % 16 == 0) {
+    for (int i = wt; i < bytes / 16; i += 128)
+      static_cast<uint4*>(dst)[i] = static_cast<const uint4*>(src)[i];
+  } else if (al % 4 == 0) {
+    for (int i = wt; i < bytes / 4; i += 128)
+      static_cast<uint32_t*>(dst)[i] = static_cast<const uint32_t*>(src)[i];
+  } else {
+    for (int i = wt; i < bytes / 2; i += 128)
+      static_cast<uint16_t*>(dst)[i] = static_cast<const uint16_t*>(src)[i];
+  }
+}
+
+// One output row of the narrow designs' dense staging ([pixel][cout] bf16,
+// cout <= 8, the layout of the output row itself) from an m64n8 fragment d:
+// the thread's channels 2t, 2t + 1 (those below cout) of pixels 16 warp + g
+// and + 8. The residual the caller staged there is read first (RES 1:
+// added before the affine, 2: after it), then the math in f32 in the plain
+// version's order, then the bf16 values written over it.
+template <int ACT, int RES>
+__device__ __forceinline__ void finish_row_dense(const float (&d)[4],
+                                                 unsigned char* row, int cout,
+                                                 int warp, int g, int t,
+                                                 const Affine<8>& aff) {
+  const int c = 2 * t;
+  if (c >= cout) return;
+  const bool two = c + 1 < cout;
+  const float scj[2] = {aff.scale[0].x, aff.scale[0].y};
+  const float shj[2] = {aff.shift[0].x, aff.shift[0].y};
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    bf16* at = reinterpret_cast<bf16*>(row) +
+               (warp * 16 + g + 8 * half) * cout + c;
+    float rs[2] = {0.f, 0.f};
+    if (RES) {
+      rs[0] = __bfloat162float(at[0]);
+      if (two) rs[1] = __bfloat162float(at[1]);
+    }
+    float v[2] = {d[2 * half], d[2 * half + 1]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float y = v[j];
+      if (RES == 1) y = __fadd_rn(y, rs[j]);
+      y = __fadd_rn(__fmul_rn(y, scj[j]), shj[j]);
+      if (RES == 2) y = __fadd_rn(y, rs[j]);
+      v[j] = activate_c<ACT>(y);
+    }
+    at[0] = __float2bfloat16_rn(v[0]);
+    if (two) at[1] = __float2bfloat16_rn(v[1]);
+  }
+}
+
+// The R rows of a dense staging (row r at r * 64 * cout bf16) to the
+// output rows y0.. of image b from column x0 on: each a contiguous run of
+// the NHWC output, copied by copy_run; rows past h skipped. The 128
+// threads meet at named barrier `bar` before and after.
+template <int R>
+__device__ __forceinline__ void store_dense_rows(const unsigned char* staging,
+                                                 bf16* out, int b, int y0,
+                                                 int x0, int h, int wd,
+                                                 int cout, int bar, int wt) {
+  named_bar(bar, 128);
+  const int px = min(kTileW, wd - x0);
+  for (int r = 0; r < R && y0 + r < h; ++r) {
+    copy_run(out + ((static_cast<size_t>(b) * h + y0 + r) * wd + x0) * cout,
+             staging + r * kTileW * cout * 2, px * cout * 2, wt);
+  }
+  named_bar(bar, 128);
+}
+
+// The residual rows y0.. of image b from column x0 on into a dense
+// staging, as store_dense_rows lays them out (synchronous loads).
+template <int R>
+__device__ __forceinline__ void load_dense_rows(unsigned char* staging,
+                                                const bf16* res, int b, int y0,
+                                                int x0, int h, int wd,
+                                                int cout, int wt) {
+  const int px = min(kTileW, wd - x0);
+  for (int r = 0; r < R && y0 + r < h; ++r) {
+    copy_run(staging + r * kTileW * cout * 2,
+             res + ((static_cast<size_t>(b) * h + y0 + r) * wd + x0) * cout,
+             px * cout * 2, wt);
+  }
+}
+
 // The persistent, warp-specialized mainloop of both kernels. A block walks
 // its tiles (blockIdx.x, + gridDim.x, ...); each tile is ITEMS items, item
 // i staging input channels [(i % KGROUPS) KG, + KG) of the tile's halo. The
@@ -532,7 +782,10 @@ __device__ __forceinline__ void mainloop(unsigned char* ring, uint64_t* full,
   const int grid = static_cast<int>(gridDim.x);
   const int mine = blk < tiles ? (tiles - 1 - blk) / grid + 1 : 0;
   const uint32_t ring_s = smem_addr(ring);
-  const int c = threadIdx.x / 128;  // kConsumers: the producer warp
+  // the warpgroup (kConsumers: the producer warp), broadcast from lane 0 so
+  // that the compiler sees it uniform over the warp: otherwise it takes the
+  // consumers' wgmmas for a divergent path and serializes them (C7520)
+  const int c = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
   if (c == kConsumers) {
     if (threadIdx.x % 32 != 0) return;
     for (int j = 0; j < mine * ITEMS; ++j) {
@@ -565,16 +818,16 @@ __device__ __forceinline__ void mainloop(unsigned char* ring, uint64_t* full,
 }
 
 // Shared memory of a kernel on the mainloop: weights, ring, output staging
-// (Staging<N>, STAGING_PX pixels, 1024-byte aligned for the swizzled TMA
-// boxes), scale, shift, barriers.
+// (STAGING_PX pixels of STAGING_N channels: Staging<N>, 1024-byte aligned
+// for the swizzled TMA boxes), scale, shift, barriers.
 template <int CIN_P, int N, int TAPS, int KG, int HR, int STAGES,
-          int STAGING_PX>
+          int STAGING_PX, int STAGING_N = N>
 struct Smem {
   static constexpr int kWeights = TAPS * CIN_P * N * 2;
   static constexpr int kRing = kWeights;
   static constexpr int kStaging =
       (kRing + STAGES * Stage<KG, HR>::kBytes + 1023) / 1024 * 1024;
-  static constexpr int kScale = kStaging + STAGING_PX * N * 2;
+  static constexpr int kScale = kStaging + STAGING_PX * STAGING_N * 2;
   static constexpr int kShift = kScale + N * 4;
   static constexpr int kFull = kShift + N * 4;
   static constexpr int kEmpty = kFull + STAGES * 8;

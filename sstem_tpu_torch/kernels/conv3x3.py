@@ -18,13 +18,20 @@ takes plain NHWC tensors and HWIO weights with any channel count up to 128
 128 and slice, the port's write 64 channels). CUDA tensors go through
 ``csrc/conv3x3_fused.cu``; CPU tensors through ``conv3x3_fused_plain``.
 
-The CUDA kernel has two designs, which the C entry point picks by shape
-(``design``), never as a fallback: the Hopper one (``wgmma`` on input tiles
-staged by cp.async in a ring of shared-memory stages, coalesced epilogue)
-where Cin is a multiple of 8 and Cout at least 16, which is every conv of
-the packed paths at 32, 64 and 128 channels, and the ``mma.sync`` one of
-the first port for the rest: the gray-pair first convs (Cin 1 or 2), odd
-Cin such as K=51, and the narrow heads (Cout 1 or 2).
+The CUDA kernel has four designs, which the C entry point picks by shape
+(``design``), never as a fallback. ``wgmma`` (warpgroup tensor cores on
+input tiles staged by TMA in a ring of shared-memory stages) where Cin is a
+multiple of 8 and Cout at least 16: every conv of the packed paths at 32,
+64 and 128 channels. ``narrow_out`` (the same mainloop, its N the three
+row taps x 8 channels, so each staged input row is read three times, not
+nine; only the real channels written) where Cin is a multiple of 8 and
+Cout at most 8: the heads (32 -> 1, 32 -> 2, 64 -> 1).
+``narrow_in`` (``csrc/conv3x3_narrow_in.cu``: K is the 3x3xCin patch,
+padded to 16, 32 or 64, its A operand built in registers from a staged
+halo) where Cin is at most 7 and Cout at most 64: the gray-pair first
+convs (2 -> 32, 1 -> 64) and the IFNet's 2 -> 6, 6 -> 6, 6 -> 32. The
+``mma.sync`` design of the first port for the rest: odd wide Cin such as
+K=51 or 100, and Cout 9 to 15 over a multiple of 8.
 """
 
 import torch
@@ -34,18 +41,30 @@ from sstem_tpu_torch.kernels import _build
 
 ACTS = {None: 0, "relu": 1, "leaky": 2}
 MAX_CHANNELS = 128
-# the wgmma design's shapes, as csrc/conv3x3_fused.cu picks them
+# the designs' shapes, as csrc/conv3x3_fused.cu picks them
 WGMMA_CIN_MULTIPLE, WGMMA_MIN_COUT = 8, 16
-# the C entry point of each design ("sstem_conv3x3_fused" picks by shape)
+NARROW_OUT_MAX_COUT = 8
+NARROW_IN_MAX_CIN, NARROW_IN_MAX_COUT = 7, 64
+# the C entry point that launches each design: "sstem_conv3x3_fused" picks
+# by shape and is the only one of the Hopper designs; "_mma" launches the
+# mma.sync design at any shape
 ENTRY_POINTS = {"wgmma": "sstem_conv3x3_fused",
+                "narrow_out": "sstem_conv3x3_fused",
+                "narrow_in": "sstem_conv3x3_fused",
                 "mma": "sstem_conv3x3_fused_mma"}
 
 
 def design(cin, cout):
     """The kernel design that serves a conv of cin -> cout channels:
-    'wgmma' or 'mma' (the same rule as the C entry point's)."""
-    if cin % WGMMA_CIN_MULTIPLE == 0 and cout >= WGMMA_MIN_COUT:
-        return "wgmma"
+    'wgmma', 'narrow_out', 'narrow_in' or 'mma' (the same rule as the C
+    entry point's)."""
+    if cin % WGMMA_CIN_MULTIPLE == 0:
+        if cout >= WGMMA_MIN_COUT:
+            return "wgmma"
+        if cout <= NARROW_OUT_MAX_COUT:
+            return "narrow_out"
+    elif cin <= NARROW_IN_MAX_CIN and cout <= NARROW_IN_MAX_COUT:
+        return "narrow_in"
     return "mma"
 
 

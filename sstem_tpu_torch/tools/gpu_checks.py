@@ -16,7 +16,7 @@ The cases are the JAX tool's, by name, shape and tolerance (``CASES``):
 the kernel side is always the port's wrapper on the card, the oracle the
 kernel's plain version on the same card, and each bf16 kernel output is
 held against the plain version on the float32 inputs, as the JAX case
-holds its kernel against the float32 XLA reference. Two departures:
+holds its kernel against the float32 XLA reference. Three departures:
 
   * ``ifnet_packed_vs_reference_rel`` holds the JAX ``packed=True`` IFNet
     twin (a TPU layout the port does not have) against the module. Its
@@ -29,7 +29,13 @@ holds its kernel against the float32 XLA reference. Two departures:
     module reads 0.031 from the float32 one on the CPU, and the serving
     forward's plain versions 0.037;
   * ``serving_warp_1280`` is added: the warp kernel at 4 x 1280^2 on fold
-    flows against its plain version (1e-6), since every restore runs it.
+    flows against its plain version (1e-6), since every restore runs it;
+  * ``packed_conv3x3_narrow_out_32to1_1280`` and
+    ``packed_conv3x3_narrow_in_1to64_1280`` are added: conv3x3's two narrow
+    designs at a full-width narrow shape of the packed paths (the SFF head
+    32 -> 1, the SP gray first conv 1 -> 64), with the packed convs' 8e-2,
+    since every packed restore runs them and the JAX tool's cases (C 32
+    and 64) reach neither.
 """
 
 import argparse
@@ -50,6 +56,9 @@ SEPCONV_FWD_SHAPES = ((1280, 1280, 1, 51), (256, 251, 3, 51),
                       (160, 1280, 1, 51), (64, 96, 1, 5))
 # (c, w) of the conv3x3 cases; H = W but for 904 (328 rows)
 CONV_CASES = ((32, 1280), (64, 640), (32, 904))
+# conv3x3's narrow designs: case -> (cin, cout), at 1 x 1280^2
+NARROW_CONV_CASES = {"packed_conv3x3_narrow_out_32to1_1280": (32, 1),
+                     "packed_conv3x3_narrow_in_1to64_1280": (1, 64)}
 K = 51
 CASES = {
     **{f"sepconv_fwd_{h}x{w}_c{c}_k{k}": 1e-4
@@ -61,6 +70,7 @@ CASES = {
     "sepconv_grad_dh_vs_autodiff": 5e-3,
     "ifnet_serve_vs_module_nrmse": 0.05,
     **{f"packed_conv3x3_c{c}_{w}": 8e-2 for c, w in CONV_CASES},
+    **{name: 8e-2 for name in NARROW_CONV_CASES},
     "packed_deconv_64to32_640": 8e-2,
     "packed_maxpool_1280": 1e-2,
     "head_tail_fused_640_k51": 2e-2,
@@ -140,6 +150,13 @@ def _packed_cases(randn):
         wk = randn((3, 3, c, c)) / (3 * c ** 0.5)
         scale, shift = fold_affine(c, randn((c,)) * 0.1)
         out[f"packed_conv3x3_c{c}_{w}"] = _err(
+            conv3x3_fused(x.to(bf16), wk.to(bf16), scale, shift, "leaky"),
+            conv3x3_fused_plain(x, wk, scale, shift, "leaky"))
+    for name, (cin, cout) in NARROW_CONV_CASES.items():
+        x = randn((1, 1280, 1280, cin))
+        wk = randn((3, 3, cin, cout)) / (3 * cin ** 0.5)
+        scale, shift = fold_affine(cout, randn((cout,)) * 0.1)
+        out[name] = _err(
             conv3x3_fused(x.to(bf16), wk.to(bf16), scale, shift, "leaky"),
             conv3x3_fused_plain(x, wk, scale, shift, "leaky"))
 

@@ -392,12 +392,53 @@ def test_every_path_signature_has_a_design(sff_calls, sp_calls,
 
 @pytest.mark.parametrize("kernel, cin, cout, want", [
     ("conv3x3", 32, 32, "wgmma"), ("conv3x3", 64, 51, "wgmma"),
-    ("conv3x3", 128, 128, "wgmma"), ("conv3x3", 2, 32, "mma"),
-    ("conv3x3", 6, 6, "mma"), ("conv3x3", 64, 1, "mma"),
+    ("conv3x3", 128, 128, "wgmma"), ("conv3x3", 2, 32, "narrow_in"),
+    ("conv3x3", 6, 6, "narrow_in"), ("conv3x3", 64, 1, "narrow_out"),
     ("conv3x3", 51, 51, "mma"), ("deconv2x", 128, 64, "wgmma"),
-    ("deconv2x", 64, 32, "wgmma"), ("deconv2x", 51, 27, "mma")])
+    ("deconv2x", 64, 32, "wgmma"), ("deconv2x", 51, 27, "mma"),
+    ("conv3x3", 1, 64, "narrow_in"), ("conv3x3", 7, 64, "narrow_in"),
+    ("conv3x3", 7, 65, "mma"), ("conv3x3", 32, 2, "narrow_out"),
+    ("conv3x3", 128, 8, "narrow_out"), ("conv3x3", 32, 9, "mma"),
+    ("conv3x3", 8, 16, "wgmma"), ("conv3x3", 100, 90, "mma")])
 def test_design_rule(kernel, cin, cout, want):
     assert DESIGNS[kernel].design(cin, cout) == want
+
+
+def test_path_conv_signatures_take_the_hopper_designs(sff_calls, sp_calls,
+                                                      sp_served_calls):
+    """Every conv3x3 the packed paths launch runs a Hopper design: the
+    narrow ones (Cin not a multiple of 8, or Cout below 16) narrow_in or
+    narrow_out, none mma.sync."""
+    for sig in (*sff_calls.values(), sp_calls, *sp_served_calls.values()):
+        for kernel, cin, cout, _, _ in sig.channels():
+            if kernel != "conv3x3":
+                continue
+            narrow = cin % 8 != 0 or cout < 16
+            assert conv3x3.design(cin, cout) == (
+                ("narrow_in" if cin % 8 else "narrow_out") if narrow
+                else "wgmma"), (cin, cout)
+
+
+def test_conv_check_lists_reach_every_design_at_odd_sizes(smoke):
+    """The conv3x3 check lists (phases 12 and 16) reach every design at a
+    size no tile divides (37 x 53), and each narrow design at every
+    width it compiles: narrow_in's K of 16, 32, 64 and N of 8, 32, 64, odd
+    and even Cin; narrow_out's padded Cin of 16 to 128."""
+    rows = smoke.SFF_CONV_CHECKS + smoke.SP_CONV_CHECKS + smoke.ODD_CONV_CHECKS
+    odd = [c for c in rows if c[1] % 8 or c[2] % 64]
+    assert {conv3x3.design(c[3], c[4]) for c in odd} == set(conv3x3.ENTRY_POINTS)
+
+    def pad(v, widths):
+        return next(p for p in widths if v <= p)
+
+    narrow_in = {(pad(9 * c[3], (16, 32, 64)), pad(c[4], (8, 32, 64)))
+                 for c in rows if conv3x3.design(c[3], c[4]) == "narrow_in"}
+    assert {k for k, _ in narrow_in} == {16, 32, 64}
+    assert {n for _, n in narrow_in} == {8, 32, 64}
+    assert {c[3] % 2 for c in odd
+            if conv3x3.design(c[3], c[4]) == "narrow_in"} == {0, 1}
+    assert {pad(c[3], (16, 32, 64, 128)) for c in odd
+            if conv3x3.design(c[3], c[4]) == "narrow_out"} == {16, 32, 64, 128}
 
 
 def test_check_lists_run_at_full_width(smoke):
@@ -511,3 +552,20 @@ def test_new_cli_signatures_are_checked_on_the_card(smoke, tmp_path):
         assert set(maps) <= smoke.MAP_CHECKS, maps
         if maps:
             assert {k[1] for k in maps} == {n}
+
+
+@pytest.mark.parametrize("variant", ["mainloop_index_by_division",
+                                     "narrow_out_without_wgmma"])
+def test_conv_variants_patch_the_sources_once(variant):
+    """Each text that tools/conv_variants.py replaces to build a variant is
+    in its source exactly once, and its sources are the ones the build
+    compiles."""
+    from sstem_tpu_torch.kernels import _build
+    from sstem_tpu_torch.tools import conv_variants
+
+    names = {p.name for p in _build.SOURCES}
+    assert set(conv_variants.SOURCES) <= names
+    for file, reps in conv_variants.VARIANTS[variant].items():
+        text = (_build.SOURCES[0].parent / file).read_text()
+        for old, new in reps:
+            assert text.count(old) == 1 and new != old, (file, old)

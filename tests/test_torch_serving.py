@@ -132,6 +132,47 @@ def test_conv3x3_matches_pallas(c, act, res):
     _assert_bf16_close(got.float().numpy(), want)
 
 
+# every narrow (cin, cout) of the packed paths (conv3x3's narrow_in and
+# narrow_out designs on the card), held against the JAX kernel as the JAX
+# serving path runs it there: the real channels zero-padded to its packing
+# width (serving.py: _packed_conv_args pads the weights with zeros and the
+# scale with ones, pack_nhwc(pad_c=...) the input and residual), the
+# padded output channels dropped
+@pytest.mark.parametrize("cin,cout,act,res", [
+    (2, 32, "relu", None), (2, 6, "relu", None), (6, 6, "relu", "post"),
+    (6, 32, "leaky", None), (32, 1, "relu", None), (32, 2, None, None),
+    (1, 64, "relu", None), (64, 1, None, "pre")])
+def test_conv3x3_narrow_matches_pallas(cin, cout, act, res):
+    rng = np.random.default_rng(100 * cin + cout)
+    n, h, w = 1, 16, 16
+    c = max(32, cin, cout)  # the packing width
+    x, xt = _bf16(rng.normal(size=(n, h, w, cin)))
+    wk, wt = _bf16(rng.normal(size=(3, 3, cin, cout)) * (2.0 / (9 * cin)) ** 0.5)
+    scale, shift = _affine(rng, cout)
+    r, rt = _bf16(rng.normal(size=(n, h, w, cout))) if res else (None, None)
+    got = conv3x3_fused(xt, wt, torch.from_numpy(scale), torch.from_numpy(shift),
+                        act, rt, res == "pre")
+    p = 128 // c
+    wpad = np.zeros((3, 3, c, c), np.float32)
+    wpad[:, :, :cin, :cout] = wk
+    spad = np.ones(c, np.float32)
+    spad[:cout] = scale
+    tpad = np.zeros(c, np.float32)
+    tpad[:cout] = shift
+
+    def packed(a):
+        return pack_nhwc(jnp.asarray(a, jnp.bfloat16), pad_c=c - a.shape[-1])
+
+    yq = conv3x3_packed(
+        packed(x), build_packed_weights(jnp.asarray(wpad, jnp.bfloat16), p),
+        jnp.tile(spad, p), jnp.tile(tpad, p), act, wq=w // p,
+        residual=None if res is None else packed(r),
+        residual_pre_affine=res == "pre", interpret=True)
+    want = np.asarray(unpack_nhwc(yq, c, w, drop_c=c - cout), np.float32)
+    assert got.dtype == BF and got.shape == want.shape == (n, h, w, cout)
+    _assert_bf16_close(got.float().numpy(), want)
+
+
 @pytest.mark.parametrize("cin,act,mode", [(64, "relu", "post_act_half"),
                                           (128, "leaky", "post_affine")])
 def test_deconv2x_matches_pallas(cin, act, mode):

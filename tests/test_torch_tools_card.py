@@ -30,7 +30,7 @@ from sstem_tpu_torch.tools import gpu_checks, verify_drive
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = ("gpu_checks", "profile_pipeline", "profile_serve", "profile_fine",
          "ifnet_prefix_bench", "micro_conv_bench", "bench_conv3x3",
-         "verify_drive")
+         "verify_drive", "conv_variants")
 
 # each JAX tool's row labels, restated from the tool, and the port
 # function's call at a tiny size on the CPU (one call, no warm-up)
@@ -141,14 +141,16 @@ def test_sff_pipeline_batched_head_tail(interp):
 def test_gpu_checks_cases_are_tpu_checks():
     """Every case of TPU_CHECKS.json is a gpu_checks case of the same name
     and tolerance, but the JAX packed IFNet twin's, whose place takes the
-    serving forward against the module; the warp case is added."""
+    serving forward against the module; the warp case and conv3x3's two
+    narrow designs are added."""
     with open(os.path.join(ROOT, "TPU_CHECKS.json")) as f:
         tpu = {k: v["tol"] for k, v in json.load(f).items()
                if isinstance(v, dict)}
     del tpu["ifnet_packed_vs_reference_rel"]
     assert {k: gpu_checks.CASES.get(k) for k in tpu} == tpu
     assert set(gpu_checks.CASES) - set(tpu) == {
-        "ifnet_serve_vs_module_nrmse", "serving_warp_1280"}
+        "ifnet_serve_vs_module_nrmse", "serving_warp_1280",
+        *gpu_checks.NARROW_CONV_CASES}
     with pytest.raises(ValueError, match="not the card"):
         gpu_checks.run_checks("cpu")
 
